@@ -1,0 +1,3 @@
+from .greedy import chosen_logprob, greedy_decode
+
+__all__ = ["chosen_logprob", "greedy_decode"]

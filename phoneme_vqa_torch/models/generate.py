@@ -1,0 +1,29 @@
+"""Greedy generation over a fusion model (counterpart of
+``phoneme_vqa_tpu/models/generate.py: make_generate_fn``): encode once,
+then the KV-cached decode loop of :func:`decode.greedy.greedy_decode`."""
+
+from __future__ import annotations
+
+import torch
+
+from ..decode.greedy import greedy_decode
+
+
+def make_generate_fn(model, max_length: int, with_scores: bool = False):
+    t5c = model.cfg.t5
+    bos, eos, pad = t5c.decoder_start_token_id, t5c.eos_token_id, t5c.pad_token_id
+
+    @torch.inference_mode()
+    def generate(batch):
+        """``batch``: dict of tensors on the model's device."""
+        cache, full_bias, enc_mask = model.encode_for_generate(batch, max_length)
+
+        def step(tokens, cache, i):
+            return model.decode_step(tokens, cache, i, full_bias, enc_mask)
+
+        return greedy_decode(
+            step, cache, enc_mask.shape[0], max_length, bos, eos, pad,
+            device=enc_mask.device, with_scores=with_scores,
+        )
+
+    return generate

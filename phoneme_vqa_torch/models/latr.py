@@ -1,0 +1,198 @@
+"""LaTr: layout-aware T5 for scene-text VQA (counterpart of
+``phoneme_vqa_tpu/models/latr.py``).
+
+The encoder input is ``concat([ViT(img) -> visual_projector,
+T5-embed(ocr) + SpatialModule(coords), T5-embed(question)])`` with mask
+``[ones(img), ocr_mask, src_mask]``, followed by a full T5 decoder and the
+tied LM head. This slice is inference only, so the frozen ViT needs no
+gradient stop.
+
+Model surface: ``forward(batch, labels, label_mask)`` for teacher-forced
+logits, ``fuse(batch)``, ``encode_for_generate(batch, max_len)`` and
+``decode_step(...)`` for greedy decoding. A batch is a dict of tensors on
+the model's device (:func:`to_device_batch`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..utils.device import resolve_device
+from ..utils.registry import MODEL_CONFIGS, MODELS
+from .spatial import SpatialModule
+from .t5 import T5, T5Config
+from .vit import ViT, ViTConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class LaTrConfig:
+    t5: T5Config = dataclasses.field(default_factory=T5Config)
+    vit: ViTConfig = dataclasses.field(default_factory=ViTConfig)
+    max_2d_position_embeddings: int = 1024
+
+
+def _dtype_of(config) -> torch.dtype:
+    name = str(config.get("DTYPE", "bfloat16"))
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
+
+
+def t5_config_from_yaml(config) -> T5Config:
+    """Backbone dims. Defaults are vit5-base; YAML keys override."""
+    return T5Config(
+        vocab_size=config.get("t5_vocab_size", 36096),
+        d_model=config.get("d_model", 768),
+        d_kv=config.get("d_kv", 64),
+        num_heads=config.get("num_heads", 12),
+        d_ff=config.get("d_ff", 3072),
+        num_layers=config.get("num_encoder_layers", 12),
+        num_decoder_layers=config.get("num_t5_decoder_layers", 12),
+        feed_forward_proj=config.get("feed_forward_proj", "gated-gelu"),
+        tie_word_embeddings=config.get("tie_word_embeddings", True),
+        dropout_rate=config.get("dropout_rate", 0.1),
+        dtype=_dtype_of(config),
+    )
+
+
+def vit_config_from_yaml(config) -> ViTConfig:
+    """ViT dims. Defaults are ViT-base 224/16; YAML keys override."""
+    return ViTConfig(
+        image_size=config.get("vit_image_size", 224),
+        patch_size=config.get("vit_patch_size", 16),
+        hidden_size=config.get("vit_hidden_size", 768),
+        num_layers=config.get("vit_num_layers", 12),
+        num_heads=config.get("vit_num_heads", 12),
+        mlp_dim=config.get("vit_mlp_dim", 3072),
+        dtype=_dtype_of(config),
+    )
+
+
+@MODEL_CONFIGS.register("LaTr_config")
+class LaTr_config:
+    """YAML Config -> LaTrConfig."""
+
+    def build(self, config) -> LaTrConfig:
+        return LaTrConfig(
+            t5=t5_config_from_yaml(config),
+            vit=vit_config_from_yaml(config),
+            max_2d_position_embeddings=config.get("max_2d_position_embeddings", 1024),
+        )
+
+
+BATCH_KEYS = (
+    "pixel_values",
+    "coordinates",
+    "input_ids",
+    "src_attention_mask",
+    "ocr_attention_mask",
+    "tokenized_ocr",
+)
+
+
+def to_device_batch(batch: Dict[str, np.ndarray], device, keys=BATCH_KEYS):
+    """numpy batch -> tensors on ``device`` (the model's inputs only)."""
+    return {k: torch.from_numpy(np.asarray(batch[k])).to(device) for k in keys if k in batch}
+
+
+@MODELS.register("LaTr")
+class LaTr(nn.Module):
+    def __init__(self, cfg: LaTrConfig, device="cuda"):
+        super().__init__()
+        device = resolve_device(device)
+        self.cfg = cfg
+        t5c = cfg.t5
+        self.t5 = T5(t5c, device)
+        self.vit = ViT(cfg.vit, device)
+        self.visual_projector = nn.Linear(
+            cfg.vit.hidden_size, t5c.d_model, device=device, dtype=t5c.dtype
+        )
+        self.spatial = SpatialModule(
+            cfg.max_2d_position_embeddings, t5c.d_model, t5c.dtype, device
+        )
+
+    @property
+    def device(self) -> torch.device:
+        return self.t5.shared.weight.device
+
+    def encode_image(self, pixel_values):
+        """Raw ViT encodings (pre-projector)."""
+        return self.vit(pixel_values)
+
+    def _img_features(self, batch):
+        """Projected image features from live pixels or from precomputed
+        ViT encodings (``vit_encodings``)."""
+        if "vit_encodings" in batch:
+            return self.visual_projector(batch["vit_encodings"].to(self.cfg.t5.dtype))
+        return self.visual_projector(self.vit(batch["pixel_values"]))
+
+    def fuse(self, batch):
+        """[ViT patches | OCR embed + spatial | question] and its mask."""
+        img_feat = self._img_features(batch)
+        layout_feat = self.t5.embed(batch["tokenized_ocr"]) + self.spatial(batch["coordinates"])
+        lang_feat = self.t5.embed(batch["input_ids"])
+        embeds = torch.cat([img_feat, layout_feat, lang_feat], dim=1)
+        mask = torch.cat(
+            [
+                torch.ones(img_feat.shape[:2], dtype=torch.int32, device=img_feat.device),
+                batch["ocr_attention_mask"].to(torch.int32),
+                batch["src_attention_mask"].to(torch.int32),
+            ],
+            dim=1,
+        )
+        return embeds, mask
+
+    def forward(self, batch, labels, label_mask):
+        """Teacher-forced (B, T, V) f32 logits."""
+        embeds, enc_mask = self.fuse(batch)
+        enc_out = self.t5.encode(embeds, enc_mask)
+        return self.t5.decode(labels, enc_out, enc_mask, label_mask)
+
+    def encode_for_generate(self, batch, max_length: int):
+        embeds, enc_mask = self.fuse(batch)
+        enc_out = self.t5.encode(embeds, enc_mask)
+        cache, full_bias = self.t5.init_cache(enc_out, max_length)
+        return cache, full_bias, enc_mask
+
+    def decode_step(self, tokens, cache, index: int, full_bias, enc_mask):
+        return self.t5.decode_step(tokens, cache, index, full_bias, enc_mask)
+
+
+def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Seeded random init of every parameter, in ``named_parameters`` order:
+    matrices and lookup tables N(0, fan_in^-1/2) (a table's fan-in is its
+    row width, so token embeddings stay small beside the residual stream and
+    greedy answers depend on the inputs), spatial tables N(0, 1), position
+    embeddings N(0, 0.02), biases and the CLS token 0, norm scales 1."""
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if name.endswith("cls_token") or (leaf == "bias" and p.dim() == 1):
+                p.zero_()
+            elif "ln" in name.rsplit(".", 2)[-2] and leaf == "weight":
+                p.fill_(1.0)
+            elif name.endswith("position_embeddings"):
+                p.normal_(0.0, 0.02, generator=generator)
+            elif name.endswith("tables"):
+                p.normal_(0.0, 1.0, generator=generator)
+            elif "embedding" in name or "shared" in name:  # (rows, width) tables
+                p.normal_(0.0, p.shape[1] ** -0.5, generator=generator)
+            else:  # Linear (out, in) and Conv (out, in, kh, kw) weights
+                fan_in = p[0].numel()
+                p.normal_(0.0, fan_in**-0.5, generator=generator)
+    return model
+
+
+def build_latr(config, device="cuda", seed: int = 0) -> LaTr:
+    """A LaTr from a YAML-style config with seeded random weights. Modules
+    are built on the meta device first, so no default init runs."""
+    device = resolve_device(device)
+    cfg = LaTr_config().build(config)
+    with torch.device("meta"):
+        model = LaTr(cfg, device="meta")
+    model = model.to_empty(device=device)
+    generator = torch.Generator(device=device).manual_seed(seed)
+    return init_random_(model, generator).eval()

@@ -1,0 +1,320 @@
+"""T5 encoder-decoder in PyTorch (counterpart of ``phoneme_vqa_tpu/models/t5.py``).
+
+* RMS layer norm (no mean subtraction, no bias), pre-norm residual blocks
+* relative position bias computed once per stack and shared by every layer
+* no attention logit scaling (T5 convention)
+* gated-gelu (tanh approximation) or relu feed-forward
+* tied or untied lm head (tied heads scale hidden by d_model**-0.5)
+
+Submodules carry the flax scope names (``encoder.block_3.attn.q``), so the
+weight bridge (``models/bridge.py``) is a near 1:1 map. Linear weights live
+in the compute dtype (flax casts its f32 kernels to ``dtype`` at each call);
+norms, embeddings and the relative-bias table stay f32.
+
+Decoding uses a stacked (L, B, H, T, d) self-attention cache and
+cross-attention K/V projected once per sequence in :meth:`T5Decoder.init_cache`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.attention import NEG_INF, dot_product_attention
+from ..ops.rel_bias import relative_position_bucket
+
+Cache = Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class T5Config:
+    vocab_size: int = 32128
+    d_model: int = 768
+    d_kv: int = 64
+    num_heads: int = 12
+    d_ff: int = 2048
+    num_layers: int = 12
+    num_decoder_layers: int = 12
+    relative_attention_num_buckets: int = 32
+    relative_attention_max_distance: int = 128
+    dropout_rate: float = 0.1  # training only; this forward is inference (identity)
+    layer_norm_epsilon: float = 1e-6
+    feed_forward_proj: str = "gated-gelu"  # or "relu"
+    tie_word_embeddings: bool = True
+    pad_token_id: int = 0
+    eos_token_id: int = 1
+    decoder_start_token_id: int = 0
+    dtype: torch.dtype = torch.bfloat16
+
+
+def _linear(d_in: int, d_out: int, cfg: T5Config, device) -> nn.Linear:
+    return nn.Linear(d_in, d_out, bias=False, device=device, dtype=cfg.dtype)
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, d: int, eps: float, dtype: torch.dtype, device=None):
+        super().__init__()
+        self.eps = eps
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.ones(d, device=device, dtype=torch.float32))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        x32 = x32 * torch.rsqrt(x32.pow(2).mean(-1, keepdim=True) + self.eps)
+        return (self.weight * x32).to(self.dtype)
+
+
+class T5FFN(nn.Module):
+    def __init__(self, cfg: T5Config, device=None):
+        super().__init__()
+        self.gated = cfg.feed_forward_proj == "gated-gelu"
+        if self.gated:
+            self.wi_0 = _linear(cfg.d_model, cfg.d_ff, cfg, device)
+            self.wi_1 = _linear(cfg.d_model, cfg.d_ff, cfg, device)
+        else:
+            self.wi = _linear(cfg.d_model, cfg.d_ff, cfg, device)
+        self.wo = _linear(cfg.d_ff, cfg.d_model, cfg, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.gated:
+            x = F.gelu(self.wi_0(x), approximate="tanh") * self.wi_1(x)
+        else:
+            x = F.relu(self.wi(x))
+        return self.wo(x)
+
+
+class T5Attention(nn.Module):
+    def __init__(self, cfg: T5Config, device=None):
+        super().__init__()
+        self.num_heads, self.d_kv = cfg.num_heads, cfg.d_kv
+        inner = cfg.num_heads * cfg.d_kv
+        self.q = _linear(cfg.d_model, inner, cfg, device)
+        self.k = _linear(cfg.d_model, inner, cfg, device)
+        self.v = _linear(cfg.d_model, inner, cfg, device)
+        self.o = _linear(inner, cfg.d_model, cfg, device)
+
+    def _split(self, x: torch.Tensor) -> torch.Tensor:  # (B, L, H*D) -> (B, H, L, D)
+        b, l, _ = x.shape
+        return x.view(b, l, self.num_heads, self.d_kv).transpose(1, 2)
+
+    @staticmethod
+    def _merge(x: torch.Tensor) -> torch.Tensor:  # (B, H, L, D) -> (B, L, H*D)
+        b, h, l, d = x.shape
+        return x.transpose(1, 2).reshape(b, l, h * d)
+
+    def forward(self, x, kv_source=None, key_mask=None, bias=None, causal: bool = False):
+        kv_source = x if kv_source is None else kv_source
+        q = self._split(self.q(x))
+        k = self._split(self.k(kv_source))
+        v = self._split(self.v(kv_source))
+        out = dot_product_attention(q, k, v, bias=bias, key_mask=key_mask, causal=causal)
+        return self.o(self._merge(out))
+
+    # -- incremental decode -------------------------------------------------
+
+    def project_kv(self, x: torch.Tensor):
+        """Project K/V once for a full sequence (cross-attention cache)."""
+        return self._split(self.k(x)), self._split(self.v(x))
+
+    def step(self, x, cache_k, cache_v, index: int, bias_row=None, key_mask=None):
+        """One self-attention decode step over the cache (B, H, T, d).
+
+        The port writes this position's K/V into the cache IN PLACE first and
+        then attends over positions <= index: one cache write per layer and
+        step. (The JAX package folds the new K/V in analytically and writes
+        all layers at once, an XLA measure; the result is the same.)"""
+        q = self._split(self.q(x))  # (B, H, 1, d)
+        cache_k[:, :, index] = self._split(self.k(x))[:, :, 0]
+        cache_v[:, :, index] = self._split(self.v(x))[:, :, 0]
+        t = cache_k.shape[2]
+        logits = torch.matmul(q.float(), cache_k.float().transpose(-1, -2))  # (B, H, 1, T)
+        if bias_row is not None:
+            logits = logits + bias_row.float()
+        keep = torch.arange(t, device=x.device) <= index
+        keep = keep[None, None, None, :]
+        if key_mask is not None:
+            keep = keep & key_mask.bool()[:, None, None, :]
+        logits = logits.masked_fill(~keep, NEG_INF)
+        probs = torch.softmax(logits, dim=-1).to(cache_v.dtype)
+        return self.o(self._merge(torch.matmul(probs, cache_v)))
+
+    def cross_step(self, x, cached_k, cached_v, key_mask=None):
+        q = self._split(self.q(x))
+        out = dot_product_attention(q, cached_k, cached_v, key_mask=key_mask)
+        return self.o(self._merge(out))
+
+
+class RelativeBias(nn.Module):
+    def __init__(self, cfg: T5Config, bidirectional: bool, device=None):
+        super().__init__()
+        self.bidirectional = bidirectional
+        self.num_buckets = cfg.relative_attention_num_buckets
+        self.max_distance = cfg.relative_attention_max_distance
+        self.rel_embedding = nn.Embedding(
+            cfg.relative_attention_num_buckets, cfg.num_heads, device=device,
+            dtype=torch.float32,
+        )
+
+    def forward(self, qlen: int, klen: int) -> torch.Tensor:
+        """(1, H, qlen, klen) f32, contiguous."""
+        device = self.rel_embedding.weight.device
+        ctx = torch.arange(qlen, device=device)[:, None]
+        mem = torch.arange(klen, device=device)[None, :]
+        buckets = relative_position_bucket(
+            mem - ctx, self.bidirectional, self.num_buckets, self.max_distance
+        )
+        return self.rel_embedding(buckets).permute(2, 0, 1)[None].contiguous()
+
+
+class T5EncoderBlock(nn.Module):
+    def __init__(self, cfg: T5Config, device=None):
+        super().__init__()
+        self.ln0 = RMSNorm(cfg.d_model, cfg.layer_norm_epsilon, cfg.dtype, device)
+        self.attn = T5Attention(cfg, device)
+        self.ln1 = RMSNorm(cfg.d_model, cfg.layer_norm_epsilon, cfg.dtype, device)
+        self.ffn = T5FFN(cfg, device)
+
+    def forward(self, x, key_mask, bias):
+        x = x + self.attn(self.ln0(x), key_mask=key_mask, bias=bias)
+        return x + self.ffn(self.ln1(x))
+
+
+def _add_blocks(module: nn.Module, make, n: int):
+    for i in range(n):
+        module.add_module(f"block_{i}", make())
+    return [getattr(module, f"block_{i}") for i in range(n)]
+
+
+class T5Encoder(nn.Module):
+    def __init__(self, cfg: T5Config, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.rel_bias = RelativeBias(cfg, bidirectional=True, device=device)
+        self.blocks = _add_blocks(self, lambda: T5EncoderBlock(cfg, device), cfg.num_layers)
+        self.final_ln = RMSNorm(cfg.d_model, cfg.layer_norm_epsilon, cfg.dtype, device)
+
+    def forward(self, inputs_embeds, attention_mask=None):
+        l = inputs_embeds.shape[1]
+        bias = self.rel_bias(l, l)
+        key_mask = None if attention_mask is None else attention_mask.bool()
+        x = inputs_embeds.to(self.cfg.dtype)
+        for block in self.blocks:
+            x = block(x, key_mask, bias)
+        return self.final_ln(x)
+
+
+class T5DecoderBlock(nn.Module):
+    def __init__(self, cfg: T5Config, device=None):
+        super().__init__()
+        self.ln0 = RMSNorm(cfg.d_model, cfg.layer_norm_epsilon, cfg.dtype, device)
+        self.self_attn = T5Attention(cfg, device)
+        self.ln1 = RMSNorm(cfg.d_model, cfg.layer_norm_epsilon, cfg.dtype, device)
+        self.cross_attn = T5Attention(cfg, device)
+        self.ln2 = RMSNorm(cfg.d_model, cfg.layer_norm_epsilon, cfg.dtype, device)
+        self.ffn = T5FFN(cfg, device)
+
+    def forward(self, x, enc_out, enc_mask, self_mask, bias):
+        x = x + self.self_attn(self.ln0(x), key_mask=self_mask, bias=bias, causal=True)
+        x = x + self.cross_attn(self.ln1(x), kv_source=enc_out, key_mask=enc_mask)
+        return x + self.ffn(self.ln2(x))
+
+    def step(self, x, cache_k, cache_v, cross_k, cross_v, index, bias_row, enc_mask):
+        x = x + self.self_attn.step(self.ln0(x), cache_k, cache_v, index, bias_row)
+        x = x + self.cross_attn.cross_step(self.ln1(x), cross_k, cross_v, enc_mask)
+        return x + self.ffn(self.ln2(x))
+
+
+class T5Decoder(nn.Module):
+    def __init__(self, cfg: T5Config, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.rel_bias = RelativeBias(cfg, bidirectional=False, device=device)
+        self.blocks = _add_blocks(
+            self, lambda: T5DecoderBlock(cfg, device), cfg.num_decoder_layers
+        )
+        self.final_ln = RMSNorm(cfg.d_model, cfg.layer_norm_epsilon, cfg.dtype, device)
+
+    def forward(self, dec_embeds, enc_out, enc_mask=None, dec_mask=None):
+        t = dec_embeds.shape[1]
+        bias = self.rel_bias(t, t)
+        enc_mask = None if enc_mask is None else enc_mask.bool()
+        dec_mask = None if dec_mask is None else dec_mask.bool()
+        x = dec_embeds.to(self.cfg.dtype)
+        for block in self.blocks:
+            x = block(x, enc_out, enc_mask, dec_mask, bias)
+        return self.final_ln(x)
+
+    # -- incremental decode --------------------------------------------------
+
+    def init_cache(self, enc_out: torch.Tensor, max_len: int):
+        """The stacked self-attention cache (L, B, H, T, d), the stacked
+        cross-attention K/V and the full decoder relative bias (1, H, T, T)."""
+        cfg = self.cfg
+        b = enc_out.shape[0]
+        shape = (cfg.num_decoder_layers, b, cfg.num_heads, max_len, cfg.d_kv)
+        kv = [block.cross_attn.project_kv(enc_out) for block in self.blocks]
+        cache = {
+            "k": torch.zeros(shape, dtype=cfg.dtype, device=enc_out.device),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=enc_out.device),
+            "ck": torch.stack([k for k, _ in kv]),
+            "cv": torch.stack([v for _, v in kv]),
+        }
+        return cache, self.rel_bias(max_len, max_len)
+
+    def step(self, tok_embed, cache: Cache, index: int, full_bias, enc_mask=None):
+        """One decode step at position ``index``; writes the cache in place."""
+        bias_row = full_bias[:, :, index : index + 1, :]
+        enc_mask = None if enc_mask is None else enc_mask.bool()
+        x = tok_embed.to(self.cfg.dtype)
+        for l, block in enumerate(self.blocks):
+            x = block.step(
+                x, cache["k"][l], cache["v"][l], cache["ck"][l], cache["cv"][l],
+                index, bias_row, enc_mask,
+            )
+        return self.final_ln(x), cache
+
+
+class T5(nn.Module):
+    """Full encoder-decoder with shared token embedding and LM head."""
+
+    def __init__(self, cfg: T5Config, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.shared = nn.Embedding(cfg.vocab_size, cfg.d_model, device=device, dtype=torch.float32)
+        self.encoder = T5Encoder(cfg, device)
+        self.decoder = T5Decoder(cfg, device)
+        if not cfg.tie_word_embeddings:
+            self.lm_head = _linear(cfg.d_model, cfg.vocab_size, cfg, device)
+
+    def embed(self, ids: torch.Tensor) -> torch.Tensor:
+        return self.shared(ids).to(self.cfg.dtype)
+
+    def encode(self, inputs_embeds, attention_mask=None):
+        return self.encoder(inputs_embeds, attention_mask)
+
+    def lm_logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        if cfg.tie_word_embeddings:
+            # products of compute-dtype values, summed and returned in f32
+            hidden = hidden * (cfg.d_model**-0.5)
+            table = self.shared.weight.to(cfg.dtype).float()
+            return torch.matmul(hidden.float(), table.t())
+        return self.lm_head(hidden).float()
+
+    def decode(self, dec_ids, enc_out, enc_mask=None, dec_mask=None):
+        """Teacher-forced decode: (B, T, V) f32 logits."""
+        return self.lm_logits(self.decoder(self.embed(dec_ids), enc_out, enc_mask, dec_mask))
+
+    def init_cache(self, enc_out, max_len: int):
+        return self.decoder.init_cache(enc_out, max_len)
+
+    def decode_step(self, token_ids, cache, index: int, full_bias, enc_mask=None):
+        """One decode step: token_ids (B,) -> ((B, V) f32 logits, cache)."""
+        hidden, cache = self.decoder.step(
+            self.embed(token_ids[:, None]), cache, index, full_bias, enc_mask
+        )
+        return self.lm_logits(hidden)[:, 0], cache

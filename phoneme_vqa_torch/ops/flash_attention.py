@@ -1,0 +1,152 @@
+"""Fused attention forward: a hand-written CUDA kernel for Hopper.
+
+Replaces ``phoneme_vqa_tpu/ops/flash_attention.py: fused_attention`` (the
+Pallas kernel). The source, with its bound and design, is
+``csrc/flash_attention.cu``; it is compiled with ``nvcc`` for ``sm_90a`` into
+a shared library with a plain C interface at first use, keyed by a hash of
+the source, and bound with ``ctypes``.
+
+:func:`fused_attention` launches the kernel for CUDA tensors and raises on
+anything it does not take; for CPU tensors it computes the plain version,
+``ops.attention.reference_attention``. ``LAUNCHES`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from typing import Optional
+
+import torch
+
+from .attention import reference_attention
+
+SOURCE = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc", "flash_attention.cu")
+BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "_build")
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+LAUNCHES = 0  # kernel launches since import (or since a caller reset it)
+BUILD_LOG = ""  # what nvcc printed for the last build (-Xptxas -v)
+_lib = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.isfile(path):
+        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the kernel")
+    return path
+
+
+def build() -> str:
+    """Compile the kernel (once per source hash) and return the library path."""
+    global BUILD_LOG
+    with open(SOURCE, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    lib_path = os.path.join(BUILD_DIR, f"flash_attention_{digest}.so")
+    if os.path.isfile(lib_path):
+        return lib_path
+    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
+    os.close(fd)
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE], capture_output=True, text=True
+    )
+    BUILD_LOG = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed to build {SOURCE}:\n{BUILD_LOG}")
+    os.replace(tmp, lib_path)
+    return lib_path
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(build())
+        fn = lib.flash_attention_fwd
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # q, k, v
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # bias, mask, out
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B H Lq Lk D
+            ctypes.c_longlong,  # bias batch stride
+            ctypes.c_int, ctypes.c_float, ctypes.c_int,  # causal, scale, is_bf16
+            ctypes.c_void_p,  # stream
+        ]
+        fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def _check(q, k, v, bias, key_mask):
+    if not (q.is_cuda and k.device == q.device and v.device == q.device):
+        raise ValueError("fused_attention: q, k, v must lie on one CUDA device")
+    if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"fused_attention: q, k, v must share f32 or bf16, got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError("fused_attention: q (B,H,Lq,D), k and v (B,H,Lk,D) expected")
+    b, h, lq, d = q.shape
+    if k.shape[0] != b or k.shape[1] != h or k.shape[3] != d:
+        raise ValueError(f"fused_attention: q {tuple(q.shape)} and k {tuple(k.shape)} disagree")
+    if d % 8 != 0 or d > 128:
+        raise ValueError(f"fused_attention: head dim {d} must be a multiple of 8, at most 128")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("fused_attention: q, k, v must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("fused_attention: q, k, v must start 16-byte aligned")
+    lk = k.shape[2]
+    if bias is not None:
+        if (bias.device != q.device or bias.dtype != torch.float32 or not bias.is_contiguous()
+                or bias.dim() != 4 or bias.shape[0] not in (1, b)
+                or tuple(bias.shape[1:]) != (h, lq, lk)):
+            raise ValueError(f"fused_attention: bias must be contiguous f32 (1|{b}, {h}, {lq}, "
+                             f"{lk}) on {q.device}, got {bias.dtype} {tuple(bias.shape)}")
+    if key_mask is not None:
+        if (key_mask.device != q.device or key_mask.dtype != torch.int32
+                or not key_mask.is_contiguous() or tuple(key_mask.shape) != (b, lk)):
+            raise ValueError(f"fused_attention: key_mask must be contiguous int32 ({b}, {lk})")
+
+
+def fused_attention(
+    q: torch.Tensor,  # (B, H, Lq, D)
+    k: torch.Tensor,  # (B, H, Lk, D)
+    v: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,  # (B|1, H, Lq, Lk) f32
+    key_mask: Optional[torch.Tensor] = None,  # (B, Lk) int32, nonzero = attend
+    causal: bool = False,
+    scale: Optional[float] = None,  # None = no scaling
+) -> torch.Tensor:
+    """softmax(scale·q·kᵀ + bias, masked) · v, output in q's dtype."""
+    global LAUNCHES
+    if q.device.type == "cpu":
+        return reference_attention(q, k, v, bias, key_mask, causal, scale)
+    _check(q, k, v, bias, key_mask)
+    fn = _load().flash_attention_fwd
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    bias_bstride = 0 if bias is None or bias.shape[0] == 1 else h * lq * lk
+    with torch.cuda.device(q.device):
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if bias is None else bias.data_ptr(),
+            None if key_mask is None else key_mask.data_ptr(),
+            out.data_ptr(), b, h, lq, lk, d, bias_bstride, int(causal),
+            1.0 if scale is None else float(scale), int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
+    LAUNCHES += 1
+    return out

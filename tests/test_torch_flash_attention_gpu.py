@@ -1,0 +1,98 @@
+"""The CUDA fused-attention kernel against its plain PyTorch version, on the card.
+
+Every test here needs a CUDA card; each skips inside the ``cuda`` fixture
+when there is none. The card machine has no JAX, so run these without the
+repo's conftest (which imports JAX):
+
+    python -m pytest tests/test_torch_flash_attention_gpu.py --noconftest -q
+"""
+
+import itertools
+
+import numpy as np
+import pytest
+import torch
+
+from phoneme_vqa_torch.ops import flash_attention as fa
+from phoneme_vqa_torch.ops.attention import dot_product_attention, reference_attention
+
+pytestmark = pytest.mark.gpu
+
+# f32: the kernel sums q·k and P·v in another order than cuBLAS; rounding is
+# ~1e-6 relative and the softmax's exp scales it by the logit size (|s| ~ 30
+# with no scale at D=128). bf16: the kernel's output is rounded to bf16
+# (2^-8 relative), compared with the f32 plain result on the same inputs.
+TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _inputs(b, h, lq, lk, d, dtype, device, seed=0):
+    rng = np.random.RandomState(seed)
+    t = lambda *s: torch.from_numpy(rng.randn(*s).astype(np.float32)).to(device)
+    q, k, v = t(b, h, lq, d).to(dtype), t(b, h, lk, d).to(dtype), t(b, h, lk, d).to(dtype)
+    bias = t(b, h, lq, lk)
+    mask = torch.from_numpy((rng.rand(b, lk) > 0.3).astype(np.int32)).to(device)
+    mask[0, 0] = 1
+    mask[-1] = 0  # the last row attends nowhere: v averaged over the Lk real keys
+    return q, k, v, bias, mask
+
+
+def _compare(q, k, v, bias, mask, causal, scale):
+    got = fa.fused_attention(q, k, v, bias, mask, causal, scale)
+    torch.cuda.synchronize()
+    want = reference_attention(q.float(), k.float(), v.float(), bias, mask, causal, scale)
+    tol = TOL[q.dtype]
+    torch.testing.assert_close(got.float(), want, atol=tol, rtol=tol)
+    return float((got.float() - want).abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("length", [16, 197, 327, 131, 512])
+@pytest.mark.parametrize("d", [64, 32])
+def test_kernel_matches_plain_over_options(cuda, dtype, length, d):
+    b, h = 2, 3
+    q, k, v, bias_full, mask = _inputs(b, h, length, length, d, dtype, cuda)
+    for bias_kind, use_mask, causal, scale in itertools.product(
+        ("none", "one", "batch"), (False, True), (False, True), (None, d**-0.5)
+    ):
+        bias = {"none": None, "one": bias_full[:1].contiguous(), "batch": bias_full}[bias_kind]
+        _compare(q, k, v, bias, mask if use_mask else None, causal, scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_cross_attention_lengths(cuda, dtype):
+    q, k, v, _, mask = _inputs(2, 4, 20, 327, 64, dtype, cuda, seed=1)
+    _compare(q, k, v, None, mask, False, None)
+
+
+def test_dispatch_launches_kernel_only_from_sixteen_rows(cuda):
+    q, k, v, bias, mask = _inputs(2, 2, 16, 16, 64, torch.float32, cuda)
+    before = fa.LAUNCHES
+    dot_product_attention(q, k, v, bias[:1].contiguous(), mask.bool())
+    assert fa.LAUNCHES == before + 1
+    dot_product_attention(q[:, :, :1].contiguous(), k, v, None, mask.bool())
+    assert fa.LAUNCHES == before + 1
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    q, k, v, bias, mask = _inputs(1, 2, 32, 32, 64, torch.float32, cuda)
+    with pytest.raises(ValueError):
+        fa.fused_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError):
+        fa.fused_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
+    with pytest.raises(ValueError):
+        fa.fused_attention(q[..., :60].contiguous(), k[..., :60].contiguous(),
+                           v[..., :60].contiguous())
+    with pytest.raises(ValueError):
+        fa.fused_attention(q, k, v, bias.double())
+    with pytest.raises(ValueError):  # contiguous but 8 bytes past a 16-byte boundary
+        fa.fused_attention(q.flatten()[2 : 2 + 2 * 31 * 64].view(1, 2, 31, 64),
+                           k[:, :, :31].contiguous(), v[:, :, :31].contiguous())
