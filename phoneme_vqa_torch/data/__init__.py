@@ -1,5 +1,9 @@
-from .adapters import textlayout_ocr_adapt
+from .adapters import textlayout_obj_adapt, textlayout_ocr_adapt
 from .latr import LaTrDataset
 from .loader import ArrayDataset, batch_iterator
+from .sal import SaLDataset
 
-__all__ = ["ArrayDataset", "LaTrDataset", "batch_iterator", "textlayout_ocr_adapt"]
+__all__ = [
+    "ArrayDataset", "LaTrDataset", "SaLDataset", "batch_iterator", "textlayout_obj_adapt",
+    "textlayout_ocr_adapt",
+]

@@ -1,10 +1,15 @@
-"""OCR feature adapter without pandas.
+"""OCR and object-region feature adapters without pandas (counterparts of
+``phoneme_vqa_tpu/data/adapters.py``).
 
-A directory of per-image pickled ``.npy`` dicts holding ``texts`` + ``boxes``
-becomes an OCR store ``{image_id: (texts, bboxes)}`` keyed by
-``float(filename_stem)``. Boxes are scaled by (w_scale, h_scale) with width
-and height 1, as boxes arrive normalized to [0, 1] (counterpart of
-``phoneme_vqa_tpu/data/adapters.py: textlayout_ocr_adapt``).
+A directory of per-image pickled ``.npy`` dicts becomes a store keyed by
+``float(filename_stem)``:
+
+* OCR files hold ``texts`` + ``boxes``; the OCR store is
+  ``{image_id: (texts, bboxes)}``, boxes scaled by (w_scale, h_scale) with
+  width and height 1, as boxes arrive normalized to [0, 1];
+* object files hold ``object_list`` + ``region_boxes`` + the image's own
+  ``height``/``width``; the object store is ``{image_id: (labels, boxes)}``,
+  boxes divided by that width/height and scaled by (w_scale, h_scale).
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 
 OcrStore = Dict[float, Tuple[List[str], List[List[float]]]]
+ObjStore = OcrStore  # {image_id: (labels, boxes)}
 
 
 def _load_npy_dict(path: str) -> dict:
@@ -42,5 +48,17 @@ def textlayout_ocr_adapt(ocr_root: str, h_scale: float = 1000, w_scale: float = 
         store[float(fname[:-4])] = (
             list(record["texts"]),
             _scale_boxes(record["boxes"], 1.0, 1.0, w_scale, h_scale),
+        )
+    return store
+
+
+def textlayout_obj_adapt(obj_root: str, h_scale: float = 1000, w_scale: float = 1000) -> ObjStore:
+    store: ObjStore = {}
+    for fname in os.listdir(obj_root):
+        record = _load_npy_dict(os.path.join(obj_root, fname))
+        store[float(fname[:-4])] = (
+            list(record["object_list"]),
+            _scale_boxes(record["region_boxes"], float(record["width"]),
+                         float(record["height"]), w_scale, h_scale),
         )
     return store

@@ -25,8 +25,8 @@ from torch import nn
 from ..utils.device import resolve_device
 from ..utils.registry import MODEL_CONFIGS, MODELS
 from .spatial import SpatialModule
-from .t5 import T5, T5Config
-from .vit import ViT, ViTConfig
+from .t5 import RMSNorm, T5, T5Config
+from .vit import LayerNorm, ViT, ViTConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -166,13 +166,17 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     matrices and lookup tables N(0, fan_in^-1/2) (a table's fan-in is its
     row width, so token embeddings stay small beside the residual stream and
     greedy answers depend on the inputs), spatial tables N(0, 1), position
-    embeddings N(0, 0.02), biases and the CLS token 0, norm scales 1."""
+    embeddings N(0, 0.02), biases and the CLS token 0, norm scales (the
+    weight of every ``RMSNorm`` and ``LayerNorm``, whatever its name) 1."""
+    norm_weights = {
+        f"{name}.weight" for name, m in model.named_modules() if isinstance(m, (RMSNorm, LayerNorm))
+    }
     with torch.no_grad():
         for name, p in model.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
             if name.endswith("cls_token") or (leaf == "bias" and p.dim() == 1):
                 p.zero_()
-            elif "ln" in name.rsplit(".", 2)[-2] and leaf == "weight":
+            elif name in norm_weights:
                 p.fill_(1.0)
             elif name.endswith("position_embeddings"):
                 p.normal_(0.0, 0.02, generator=generator)

@@ -1,7 +1,8 @@
 """T5 encoder-decoder in PyTorch (counterpart of ``phoneme_vqa_tpu/models/t5.py``).
 
 * RMS layer norm (no mean subtraction, no bias), pre-norm residual blocks
-* relative position bias computed once per stack and shared by every layer
+* relative position bias computed once per stack and shared by every layer;
+  a model may inject the encoder's instead (SaL's 2D bias, ``position_bias``)
 * no attention logit scaling (T5 convention)
 * gated-gelu (tanh approximation) or relu feed-forward
 * tied or untied lm head (tied heads scale hidden by d_model**-0.5)
@@ -190,16 +191,28 @@ def _add_blocks(module: nn.Module, make, n: int):
 
 
 class T5Encoder(nn.Module):
-    def __init__(self, cfg: T5Config, device=None):
+    """``rel_bias=False`` builds an encoder without its own relative-bias
+    table, for a model that always injects ``position_bias`` (SaL): flax
+    never creates the table of a submodule that is never called, so such a
+    model's parameter set has none."""
+
+    def __init__(self, cfg: T5Config, device=None, rel_bias: bool = True):
         super().__init__()
         self.cfg = cfg
-        self.rel_bias = RelativeBias(cfg, bidirectional=True, device=device)
+        self.rel_bias = RelativeBias(cfg, bidirectional=True, device=device) if rel_bias else None
         self.blocks = _add_blocks(self, lambda: T5EncoderBlock(cfg, device), cfg.num_layers)
         self.final_ln = RMSNorm(cfg.d_model, cfg.layer_norm_epsilon, cfg.dtype, device)
 
-    def forward(self, inputs_embeds, attention_mask=None):
+    def forward(self, inputs_embeds, attention_mask=None, position_bias=None):
+        """``position_bias`` (a (B|1, H, L, L) tensor or a ``FusedSalBias``),
+        when given, replaces the encoder's own relative bias."""
         l = inputs_embeds.shape[1]
-        bias = self.rel_bias(l, l)
+        if position_bias is not None:
+            bias = position_bias
+        elif self.rel_bias is not None:
+            bias = self.rel_bias(l, l)
+        else:
+            raise ValueError("T5Encoder built without rel_bias needs a position_bias")
         key_mask = None if attention_mask is None else attention_mask.bool()
         x = inputs_embeds.to(self.cfg.dtype)
         for block in self.blocks:
@@ -281,11 +294,11 @@ class T5Decoder(nn.Module):
 class T5(nn.Module):
     """Full encoder-decoder with shared token embedding and LM head."""
 
-    def __init__(self, cfg: T5Config, device=None):
+    def __init__(self, cfg: T5Config, device=None, encoder_rel_bias: bool = True):
         super().__init__()
         self.cfg = cfg
         self.shared = nn.Embedding(cfg.vocab_size, cfg.d_model, device=device, dtype=torch.float32)
-        self.encoder = T5Encoder(cfg, device)
+        self.encoder = T5Encoder(cfg, device, rel_bias=encoder_rel_bias)
         self.decoder = T5Decoder(cfg, device)
         if not cfg.tie_word_embeddings:
             self.lm_head = _linear(cfg.d_model, cfg.vocab_size, cfg, device)
@@ -293,8 +306,8 @@ class T5(nn.Module):
     def embed(self, ids: torch.Tensor) -> torch.Tensor:
         return self.shared(ids).to(self.cfg.dtype)
 
-    def encode(self, inputs_embeds, attention_mask=None):
-        return self.encoder(inputs_embeds, attention_mask)
+    def encode(self, inputs_embeds, attention_mask=None, position_bias=None):
+        return self.encoder(inputs_embeds, attention_mask, position_bias)
 
     def lm_logits(self, hidden: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg

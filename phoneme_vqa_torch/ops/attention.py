@@ -56,14 +56,32 @@ def dot_product_attention(
     q: torch.Tensor,
     k: torch.Tensor,
     v: torch.Tensor,
-    bias: Optional[torch.Tensor] = None,
+    bias=None,  # tensor (B|1, H, Lq, Lk) or FusedSalBias
     key_mask: Optional[torch.Tensor] = None,
     causal: bool = False,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """A CUDA call with Lq >= 16 and a 2-D key mask (or none) launches the
-    fused kernel; every other call (CPU tensors, one-token decode steps)
-    takes the plain version."""
+    """A CUDA call with a ``FusedSalBias``, no causal mask, no scale and
+    Lq == Lk launches the SaL kernel; any other ``FusedSalBias`` is
+    materialized first. Then a CUDA call with Lq >= 16 and a 2-D key mask (or
+    none) launches the fused kernel; every other call (CPU tensors, one-token
+    decode steps) takes the plain version."""
+    from .sal_fused_attention import FusedSalBias
+
+    if isinstance(bias, FusedSalBias):
+        if q.is_cuda and not causal and scale is None and q.shape[-2] == k.shape[-2]:
+            from .sal_fused_attention import sal_fused_attention
+
+            mask = (
+                torch.ones(k.shape[0], k.shape[2], dtype=torch.int32, device=k.device)
+                if key_mask is None
+                else key_mask.to(torch.int32).contiguous()
+            )
+            return sal_fused_attention(
+                q.contiguous(), k.contiguous(), v.contiguous(), bias.bias1d.contiguous(),
+                bias.cell_bias.contiguous(), bias.cell.to(torch.int32).contiguous(), mask,
+            )
+        bias = bias.materialize()
     use_kernel = (
         q.is_cuda
         and q.shape[-2] >= _FLASH_MIN_QLEN

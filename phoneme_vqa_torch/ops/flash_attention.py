@@ -3,8 +3,8 @@
 Replaces ``phoneme_vqa_tpu/ops/flash_attention.py: fused_attention`` (the
 Pallas kernel). The source, with its bound and design, is
 ``csrc/flash_attention.cu``; it is compiled with ``nvcc`` for ``sm_90a`` into
-a shared library with a plain C interface at first use, keyed by a hash of
-the source, and bound with ``ctypes``.
+a shared library with a plain C interface at first use (``ops/_build.py``,
+keyed by a hash of the source), and bound with ``ctypes``.
 
 :func:`fused_attention` launches the kernel for CUDA tensors and raises on
 anything it does not take; for CPU tensors it computes the plain version,
@@ -14,66 +14,24 @@ anything it does not take; for CPU tensors it computes the plain version,
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 from typing import Optional
 
 import torch
 
+from . import _build
 from .attention import reference_attention
 
-SOURCE = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc", "flash_attention.cu")
-BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "_build")
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+NAME = "flash_attention"
+SOURCE = _build.source(NAME)
 
 LAUNCHES = 0  # kernel launches since import (or since a caller reset it)
-BUILD_LOG = ""  # what nvcc printed for the last build (-Xptxas -v)
 _lib = None
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    path = os.path.join(home, "bin", "nvcc")
-    if not os.path.isfile(path):
-        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the kernel")
-    return path
-
-
-def build() -> str:
-    """Compile the kernel (once per source hash) and return the library path."""
-    global BUILD_LOG
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    lib_path = os.path.join(BUILD_DIR, f"flash_attention_{digest}.so")
-    if os.path.isfile(lib_path):
-        return lib_path
-    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
-    os.close(fd)
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE], capture_output=True, text=True
-    )
-    BUILD_LOG = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed to build {SOURCE}:\n{BUILD_LOG}")
-    os.replace(tmp, lib_path)
-    return lib_path
 
 
 def _load():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build())
+        lib = ctypes.CDLL(_build.build(NAME)[0])
         fn = lib.flash_attention_fwd
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # q, k, v

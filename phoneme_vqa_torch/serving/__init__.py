@@ -1,3 +1,3 @@
-from .engine import ServingEngine, featurize_requests
+from .engine import SaLInputs, ServingEngine, featurize_requests
 
-__all__ = ["ServingEngine", "featurize_requests"]
+__all__ = ["SaLInputs", "ServingEngine", "featurize_requests"]

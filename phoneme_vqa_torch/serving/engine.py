@@ -1,34 +1,65 @@
-"""Synchronous serving engine over the LaTr greedy decode path.
+"""Synchronous serving engine over the greedy decode path.
 
 Counterpart of the request path of ``phoneme_vqa_tpu/serving/engine.py``:
-requests (image_id, question) are featurized against a preloaded OCR store
-(:func:`featurize_requests`), decoded in fixed-size batches with the final
-batch padded (as ``BaseExecutor.infer`` pads it), and each row is cut at EOS
-and detokenized (as ``BaseExecutor._decode_rows`` does). Threads, queues,
+requests (image_id, question) are featurized against preloaded feature
+stores (:func:`featurize_requests`), decoded in fixed-size batches with the
+final batch padded (as ``BaseExecutor.infer`` pads it), and each row is cut
+at EOS and detokenized (as ``BaseExecutor._decode_rows`` does). It serves
+the LaTr family from an OCR store and page images, and the SaL family when
+it is given :class:`SaLInputs` (an object store and the feature files) too,
+moving the SaL batch keys to the device. Threads, queues,
 deadlines, the watchdog, adapters, buckets and the encoding cache are not
 ported yet.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+import dataclasses
+from typing import List, Optional, Sequence, Tuple
 
 from ..data.latr import LaTrDataset
 from ..data.loader import batch_iterator
+from ..data.sal import SaLDataset
+from ..models import latr as latr_mod
+from ..models import sal as sal_mod
 from ..models.generate import make_generate_fn
-from ..models.latr import to_device_batch
 
 Request = Tuple[float, str]  # (image_id, question)
 
 
+@dataclasses.dataclass(frozen=True)
+class SaLInputs:
+    """What featurizing for the SaL family needs beside the OCR store (the
+    SaL executor's config keys of the same names)."""
+
+    obj_store: dict  # {image_id: (labels, boxes)}, ``textlayout_obj_adapt``
+    base_ocr_feature_path: str
+    base_obj_feature_path: str
+    ocr_hidden: int = 512
+    obj_hidden: int = 2048
+    max_obj_element: int = 25
+    max_obj_length: int = 50
+
+
 def featurize_requests(tokenizer, ocr_store, base_img_path, reqs: Sequence[Request],
                        max_ocr_element: int = 50, max_ocr_length: int = 100,
-                       max_q_length: int = 30, max_a_length: int = 20):
-    """Requests -> the eval-path ArrayDataset (answers are empty: serving has none)."""
+                       max_q_length: int = 30, max_a_length: int = 20,
+                       sal: Optional[SaLInputs] = None):
+    """Requests -> the eval-path ArrayDataset (answers are empty: serving
+    has none): LaTr's, or SaL's when ``sal`` is given (``base_img_path`` is
+    then unused). Rows whose image a store lacks are dropped."""
     rows = [
         {"image_id": float(image_id), "question": question, "answer": ""}
         for image_id, question in reqs
     ]
+    if sal is not None:
+        return SaLDataset(
+            rows, ocr_store, sal.obj_store, tokenizer, sal.base_ocr_feature_path,
+            sal.base_obj_feature_path, ocr_hidden=sal.ocr_hidden, obj_hidden=sal.obj_hidden,
+            max_ocr_element=max_ocr_element, max_ocr_length=max_ocr_length,
+            max_obj_element=sal.max_obj_element, max_obj_length=sal.max_obj_length,
+            max_input_length=max_q_length, max_output_length=max_a_length,
+        ).dataset
     return LaTrDataset(
         rows, ocr_store, tokenizer, base_img_path,
         max_ocr_element=max_ocr_element, max_ocr_length=max_ocr_length,
@@ -49,36 +80,46 @@ def decode_rows(tokenizer, rows) -> List[str]:
 
 
 class ServingEngine:
-    """Answers batches of requests with a LaTr model on its device.
+    """Answers batches of requests with a LaTr or SaL model on its device.
 
     ``answer(requests)`` featurizes, decodes in batches of ``batch_size``
-    (the last one padded) and returns one answer string per request."""
+    (the last one padded) and returns one answer string per request. A
+    request whose image is missing from a store raises ``KeyError``."""
 
-    def __init__(self, model, tokenizer, ocr_store, base_img_path: str,
+    def __init__(self, model, tokenizer, ocr_store, base_img_path: Optional[str],
                  batch_size: int = 32, max_answer_length: int = 20,
                  max_ocr_element: int = 50, max_ocr_length: int = 100,
-                 max_q_length: int = 30):
+                 max_q_length: int = 30, sal: Optional[SaLInputs] = None):
         self.model = model
         self.tokenizer = tokenizer
         self.ocr_store = ocr_store
         self.base_img_path = base_img_path
+        self.sal = sal
         self.batch_size = batch_size
         self.max_answer_length = max_answer_length
         self.featurize_args = dict(
             max_ocr_element=max_ocr_element, max_ocr_length=max_ocr_length,
-            max_q_length=max_q_length,
+            max_q_length=max_q_length, sal=sal,
         )
+        self.batch_keys = latr_mod.BATCH_KEYS if sal is None else sal_mod.BATCH_KEYS
+        # SaL featurization inner-joins both stores: admit only images in each
+        self.known_ids = set(ocr_store) if sal is None else set(ocr_store) & set(sal.obj_store)
+        if not self.known_ids:
+            raise ValueError("no image id is in every feature store")
         self.generate = make_generate_fn(model, max_answer_length)
 
     def answer(self, requests: Sequence[Request]) -> List[str]:
+        unknown = sorted({float(i) for i, _ in requests} - self.known_ids)
+        if unknown:
+            stores = "OCR store" if self.sal is None else "OCR and object stores"
+            raise KeyError(f"image ids {unknown} are not in the {stores}")
         dataset = featurize_requests(
             self.tokenizer, self.ocr_store, self.base_img_path, requests,
             **self.featurize_args,
         )
-        if len(dataset) != len(requests):
-            raise KeyError("a request names an image_id that the OCR store does not hold")
         rows: List = []
         for batch, n_valid in batch_iterator(dataset, self.batch_size, pad_final=True):
-            out = self.generate(to_device_batch(batch, self.model.device))
+            tb = latr_mod.to_device_batch(batch, self.model.device, self.batch_keys)
+            out = self.generate(tb)
             rows.extend(out[:n_valid].tolist())
         return decode_rows(self.tokenizer, rows)
