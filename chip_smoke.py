@@ -5,12 +5,14 @@
 Phases (any failure exits non-zero; nothing is caught and carried past):
 1.  the card's name and power limit; TF32 off for f32 matmuls and convolutions
 2.  build both CUDA kernels from csrc/ with nvcc, one process each, started
-    together (prints -Xptxas -v)
+    together (prints -Xptxas -v; fails if a bf16 TMA + wgmma kernel spills)
 3.  the attention kernel against its plain PyTorch version over dtypes,
-    options and lengths, and at the two shapes the LaTr serving path gives it
+    options, lengths and head dims (32, 64, 128), and at the two shapes the
+    LaTr serving path gives it; q, k, v as (B, H, L, D) views of (B, L, H, D)
+    storage (the models' layout) give bit for bit what contiguous copies give
 3b. the SaL kernel against its plain version (materialize the bias, then
     plain attention) over dtypes, table types, lengths, head dims, masks and
-    cells, and at the SaL serving shape
+    cells, and at the SaL serving shape; views bit-equal as in phase 3
 4.  full-width LaTr-base (seeded random weights) answers synthetic requests
     through ServingEngine at batch 32 in bf16; the attention kernel must
     launch 24 times per batch (12 ViT + 12 T5 encoder layers), the SaL one 0
@@ -23,6 +25,10 @@ Phases (any failure exits non-zero; nothing is caught and carried past):
 6.  attention kernel, plain and library (SDPA) times at the LaTr serving
     shapes, CUDA events
 6b. SaL kernel, plain and library times at the SaL serving shape
+6c. ablations: the kernels at the serving shapes with part of their work
+    taken away (the T5 encoder without its bias, its mask or both, with
+    contiguous q, k, v; the SaL shape with f32 tables, and through the
+    attention kernel with its key mask only, i.e. without the SaL policy)
 
 Prints a {"kernels": [...]} line, the card line, and last
 {"ok": true, "device": {...}}. Needs the repo's phoneme_vqa_torch package;
@@ -34,6 +40,7 @@ from __future__ import annotations
 import itertools
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -57,6 +64,7 @@ from phoneme_vqa_torch.models import vit as vit_mod  # noqa: E402
 from phoneme_vqa_torch.ops import _build  # noqa: E402
 from phoneme_vqa_torch.ops import attention as attn_mod  # noqa: E402
 from phoneme_vqa_torch.ops import flash_attention as fa  # noqa: E402
+from phoneme_vqa_torch.ops import layout  # noqa: E402
 from phoneme_vqa_torch.ops import sal_fused_attention as sfa  # noqa: E402
 from phoneme_vqa_torch.serving import SaLInputs, ServingEngine, featurize_requests  # noqa: E402
 from phoneme_vqa_torch.tokenizers.backbone import FallbackSubwordTokenizer  # noqa: E402
@@ -96,6 +104,14 @@ TIE_MARGIN = 1e-4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOP_PER_S = 989e12  # dense bf16 tensor-core peak
 KERNELS = {"flash_attention": fa, "sal_fused_attention": sfa}  # name -> wrapper module
+# csrc/attention_core.cuh; the ring depth is what shared memory leaves for 2
+# blocks an SM
+DESIGN = ("bf16: TMA + wgmma; 1 producer warp + 1 consumer warpgroup (64 query rows) a block, "
+          "2 blocks an SM, persistent grid; a K ring (K, the bias or bias1d tile, the key "
+          "fix-ups) and a V ring of 3 stages each (2 when a tile carries a bias tile) on their "
+          "own full/empty mbarriers; S = QK^T and O += PV on wgmma, P from registers, V read "
+          "MN-major; tiles without masked keys skip the fix-ups; q/k/v/out by strides. "
+          "f32: CUDA-core FMAs")
 
 
 def log(msg: str) -> None:
@@ -150,7 +166,7 @@ def _compare(q, k, v, bias, mask, causal, scale) -> float:
 def check_kernel_grid() -> dict:
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     n = 0
-    for dtype, length, d in itertools.product(worst, (16, 197, 327, 131, 512), (64, 32)):
+    for dtype, length, d in itertools.product(worst, (16, 37, 131, 197, 327, 512), (64, 32, 128)):
         q, k, v, bias_full, mask = _attn_inputs(2, 3, length, length, d, dtype)
         for bias_kind, use_mask, causal, scale in itertools.product(
             ("none", "one", "batch"), (False, True), (False, True), (None, d**-0.5)
@@ -160,29 +176,67 @@ def check_kernel_grid() -> dict:
             worst[dtype] = max(worst[dtype], err)
             n += 1
     # decoder cross-attention lengths (teacher forced): Lq 20 over Lk 327
-    for dtype in worst:
+    for dtype, causal in itertools.product(worst, (False, True)):
         q, k, v, _, mask = _attn_inputs(2, 4, 20, 327, 64, dtype, seed=1)
-        worst[dtype] = max(worst[dtype], _compare(q, k, v, None, mask, False, None))
+        worst[dtype] = max(worst[dtype], _compare(q, k, v, None, mask, causal, None))
         n += 1
     # the two serving-path shapes, in the serving dtype
     for args in serving_shapes():
         worst[torch.bfloat16] = max(worst[torch.bfloat16], _compare(*args))
         n += 1
+    def attn_calls(q, k, v, seed):
+        b, h, lq, d = q.shape
+        _, _, _, bias, mask = _attn_inputs(b, h, lq, k.shape[2], d, q.dtype, seed)
+        return [(fa.fused_attention, (q, k, v, bias_, mask, causal, scale))
+                for bias_, causal, scale in ((None, False, d**-0.5),
+                                             (bias[:1].contiguous(), True, None),
+                                             (bias, False, None))]
+
+    n_views = check_views(attn_calls, [(37, 37), (131, 131), (20, 327)])
     log(f"phase 3: kernel == plain over {n} cases; max |err| f32 {worst[torch.float32]:.3e} "
         f"(tol {TOL[torch.float32]}), bf16 {worst[torch.bfloat16]:.3e} "
-        f"(tol {TOL[torch.bfloat16]})")
+        f"(tol {TOL[torch.bfloat16]}); views of (B, L, H, D) storage == contiguous bit for "
+        f"bit in {n_views} cases")
     return worst
 
 
+def check_views(calls, lengths) -> int:
+    """For f32 and bf16, head dims 32, 64, 128 and each (Lq, Lk) in
+    ``lengths``: every (kernel, args) of ``calls(q, k, v, seed)`` on q, k, v
+    in the models' layout must equal the same call on contiguous copies bit
+    for bit, output strides included."""
+    n = 0
+    for dtype, d, (lq, lk) in itertools.product((torch.float32, torch.bfloat16), (32, 64, 128),
+                                                lengths):
+        q, k, v, _, _ = _attn_inputs(2, 3, lq, lk, d, dtype, seed=7)
+        views = model_layout(q, k, v)
+        for (kernel, args), (_, view_args) in zip(calls(q, k, v, 7), calls(*views, 7)):
+            want, got = kernel(*args), kernel(*view_args)
+            torch.cuda.synchronize()
+            if got.stride() != want.stride() or not torch.equal(got, want):
+                raise AssertionError(f"views != contiguous: {dtype} d={d} Lq={lq} Lk={lk}")
+            n += 1
+    return n
+
+
+def model_layout(*xs):
+    """(B, H, L, D) views of (B, L, H, D) storage, as the models hand q, k
+    and v to the kernels (``T5Attention._split``, the ViT ``split``)."""
+    return tuple(x.transpose(1, 2).contiguous().transpose(1, 2) for x in xs)
+
+
 def serving_shapes():
-    """(q, k, v, bias, mask, causal, scale) at B=32, H=12, D=64, bf16:
-    the ViT self-attention (L=197) and the T5 encoder self-attention (L=327)."""
+    """(q, k, v, bias, mask, causal, scale) at B=32, H=12, D=64, bf16, q, k, v
+    in the models' layout: the ViT self-attention (L=197) and the T5 encoder
+    self-attention (L=327)."""
     q, k, v, _, _ = _attn_inputs(BATCH, 12, 197, 197, 64, torch.bfloat16, seed=2)
-    vit = (q, k, v, None, None, False, 64**-0.5)
+    vit = (*model_layout(q, k, v), None, None, False, 64**-0.5)
     q, k, v, _, mask = _attn_inputs(BATCH, 12, 327, 327, 64, torch.bfloat16, seed=3)
+    q, k, v = model_layout(q, k, v)
     mask[-1] = 1
     g = torch.Generator(device=DEVICE).manual_seed(4)
-    bias = torch.randn(1, 12, 327, 327, generator=g, device=DEVICE)
+    # rows 16 bytes apart, as the T5 encoder's RelativeBias builds it
+    bias, _ = layout.kernel_operand(torch.randn(1, 12, 327, 327, generator=g, device=DEVICE))
     enc = (q, k, v, bias, mask, False, None)
     return vit, enc
 
@@ -229,7 +283,7 @@ def check_sal_kernel_grid() -> dict:
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     n = 0
     for dtype, length, d, table_dtype, use_mask, all_sentinel in itertools.product(
-        worst, (8, 37, 131, 336, 512), (64, 32), (torch.float32, torch.bfloat16),
+        worst, (8, 37, 131, 336, 512), (64, 32, 128), (torch.float32, torch.bfloat16),
         (True, False), (False, True),
     ):
         q, k, v, bias1d, cb, cell, mask = _sal_inputs(3, 3, length, d, dtype, table_dtype,
@@ -239,17 +293,30 @@ def check_sal_kernel_grid() -> dict:
         n += 1
     worst[torch.bfloat16] = max(worst[torch.bfloat16], _compare_sal(*sal_serving_shape()))
     n += 1
+
+    def sal_calls(q, k, v, seed):
+        calls = []
+        for table_dtype in (torch.float32, torch.bfloat16):
+            _, _, _, bias1d, cb, cell, mask = _sal_inputs(*q.shape[:3], q.shape[3], q.dtype,
+                                                          table_dtype, seed=seed)
+            calls.append((sfa.sal_fused_attention, (q, k, v, bias1d, cb, cell, mask)))
+        return calls
+
+    n_views = check_views(sal_calls, [(37, 37), (131, 131), (336, 336)])
     log(f"phase 3b: SaL kernel == plain over {n} cases; max |err| f32 "
         f"{worst[torch.float32]:.3e} (tol {TOL[torch.float32]}), bf16 "
-        f"{worst[torch.bfloat16]:.3e} (tol {TOL[torch.bfloat16]})")
+        f"{worst[torch.bfloat16]:.3e} (tol {TOL[torch.bfloat16]}); views == contiguous bit "
+        f"for bit in {n_views} cases")
     return worst
 
 
 def sal_serving_shape():
     """The SaL encoder self-attention at B=32, H=12, L=336, D=64, bf16 with
-    bf16 tables: sentinel cells outside the OCR block, a key mask."""
+    bf16 tables, q, k, v in the models' layout: sentinel cells outside the
+    OCR block, a key mask."""
     q, k, v, bias1d, cb, cell, mask = _sal_inputs(BATCH, 12, SAL_L, 64, torch.bfloat16,
                                                   torch.bfloat16, seed=5)
+    q, k, v = model_layout(q, k, v)
     ocr = slice(SAL_FULL["max_q_length"], SAL_FULL["max_q_length"] + SAL_FULL["max_ocr_length"])
     g = torch.Generator(device=DEVICE).manual_seed(6)
     cell[:] = sfa.SENTINEL
@@ -352,7 +419,9 @@ def serve(phase, title, engine, reqs, per_batch: dict) -> dict:
     split.update(profile_generate(engine.generate, tb, split["generate_ms"]))
     log(f"{phase}: {len(answers)} answers in {n_batches} batches of {BATCH} (bf16, full-width "
         f"{title}): {ms_per_batch:.3f} ms/batch, {len(answers) / wall:.3f} answers/s; kernel "
-        f"launches {got} = {per_batch} x {n_batches}; one batch split {json.dumps(split)}; "
+        f"launches {got} = {per_batch} x {n_batches}; device kernel launches per batch "
+        f"(profiler, one generate) {split['device_kernel_launches']}; one batch split "
+        f"{json.dumps(split)}; "
         f"sample answers {answers[:3]}")
     return {"launches": got, "ms_per_batch": ms_per_batch,
             "answers_per_s": len(answers) / wall, "n_answers": len(answers), **split}
@@ -375,11 +444,14 @@ def profile_generate(generate, tb, wall_ms: float) -> dict:
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    ours = [e for e in kernels if "attn::attention_" in e.key]  # both ported kernels
     return {
         "profiled_wall_ms": wall_us / 1e3,
         "device_busy_ms": busy_us / 1e3,
         "device_busy_share": busy_us / (1e3 * wall_ms),
         "device_kernel_launches": sum(e.count for e in kernels),
+        "attention_kernels_ms": sum(e.self_device_time_total for e in ours) / 1e3,
+        "attention_kernel_launches": sum(e.count for e in ours),
         "top_kernels_ms": {e.key[:90]: e.self_device_time_total / 1e3 for e in top},
     }
 
@@ -484,17 +556,48 @@ def run_family(phase, title, build, fixture, make_engine, tokenizer, per_batch, 
 # -- phases 6 and 6b ----------------------------------------------------------
 
 
-def _time(fn, iters=20) -> float:
+def _time(key: str, fn, iters=20, repeats=5) -> dict:
+    """ms per launch of ``fn`` by CUDA events: the median of ``repeats`` runs
+    of ``iters`` warmed launches under ``key``, their min and max beside it."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
+    runs = []
+    for _ in range(repeats):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        runs.append(start.elapsed_time(end) / iters)
+    runs.sort()
+    return {key: runs[len(runs) // 2], f"{key}_min_max": [runs[0], runs[-1]]}
+
+
+def _split_time(prefix: str, fn, iters=20, host_iters=200) -> dict:
+    """Where ``_time``'s ms per call goes: ``<prefix>device_ms``, the CUDA
+    kernel time per call that torch.profiler records over ``iters`` warmed
+    calls, and ``<prefix>host_ms``, the host-clock time per call to issue
+    ``host_iters`` of them (no synchronize inside). Back-to-back event times
+    near the host time are set by the host, not the kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    t0 = time.perf_counter()
+    for _ in range(host_iters):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return {f"{prefix}device_ms": sum(e.self_device_time_total for e in kernels) / iters / 1e3,
+            f"{prefix}host_ms": 1e3 * host_s / host_iters}
 
 
 def _bound(moved_bytes, flops):
@@ -530,9 +633,10 @@ def time_kernel() -> list:
         moved, flops = _qkvo_bytes_flops(q, k)
         moved += sum(0 if t is None else t.numel() * 4 for t in (bias, mask))
         bound_ms, bound_by = _bound(moved, flops)
+        library = _sdpa(q, k, v, bias, mask, scale)
         row = {"shape": name, "q": list(q.shape), "dtype": str(q.dtype).replace("torch.", ""),
-               "ms": _time(kernel), "plain_ms": _time(plain),
-               "library_ms": _time(_sdpa(q, k, v, bias, mask, scale)),
+               **_time("ms", kernel), **_time("plain_ms", plain), **_time("library_ms", library),
+               **_split_time("", kernel), **_split_time("library_", library),
                "bound_ms": bound_ms, "bound_by": bound_by}
         rows.append(row)
         log(f"phase 6: {json.dumps(row)}")
@@ -551,12 +655,56 @@ def time_sal_kernel() -> dict:
     moved += sum(t.numel() * t.element_size() for t in (bias1d, cb, cell, mask))
     bound_ms, bound_by = _bound(moved, flops)
     row = {"shape": "sal_encoder", "q": list(q.shape), "dtype": "bfloat16",
-           "tables": str(bias1d.dtype).replace("torch.", ""), "ms": _time(kernel),
-           "plain_ms": _time(plain), "library_ms": _time(library),
+           "tables": str(bias1d.dtype).replace("torch.", ""), **_time("ms", kernel),
+           **_time("plain_ms", plain), **_time("library_ms", library),
+           **_split_time("", kernel), **_split_time("library_", library),
            "library_excludes": "bias materialization", "bound_ms": bound_ms,
            "bound_by": bound_by}
     log(f"phase 6b: {json.dumps(row)}")
     return row
+
+
+def time_ablations() -> dict:
+    """Event and device ms per call of the kernels at the serving shapes
+    with part of their work taken away, each beside the full call in
+    phases 6 / 6b: what the logit policy, the mask and the models' layout
+    cost. Kernel name -> rows."""
+    _, (q, k, v, bias, mask, _, _) = serving_shapes()
+    qc, kc, vc = (x.contiguous() for x in (q, k, v))
+    sq, sk, sv, bias1d, cb, cell, smask = sal_serving_shape()
+    cases = [
+        ("flash_attention", "t5_encoder_no_bias", fa.fused_attention, (q, k, v, None, mask)),
+        ("flash_attention", "t5_encoder_no_bias_no_mask", fa.fused_attention, (q, k, v)),
+        ("flash_attention", "t5_encoder_contiguous_qkv", fa.fused_attention,
+         (qc, kc, vc, bias, mask)),
+        ("sal_fused_attention", "sal_encoder_f32_tables", sfa.sal_fused_attention,
+         (sq, sk, sv, bias1d.float(), cb.float(), cell, smask)),
+        # the same q, k, v and mask through the attention kernel: the core
+        # without the SaL policy
+        ("sal_fused_attention", "sal_encoder_no_policy", fa.fused_attention,
+         (sq, sk, sv, None, smask)),
+    ]
+    rows = {}
+    for kernel_name, case, kernel, args in cases:
+        call = lambda: kernel(*args)
+        row = {"case": case, **_time("ms", call), **_split_time("", call)}
+        rows.setdefault(kernel_name, []).append(row)
+        log(f"phase 6c: {json.dumps(row)}")
+    return rows
+
+
+def bf16_spills(logs: dict) -> list:
+    """[kernel, entry, report] for every bf16 entry (attention_tma_kernel)
+    whose -Xptxas -v report shows spill stores or loads."""
+    found, entry = [], ""
+    for name, out in logs.items():
+        for line in out.splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]
+            elif "spill stores" in line and "attention_tma_kernel" in entry:
+                if any(int(n) for n in re.findall(r"(\d+) bytes spill", line)):
+                    found.append([name, entry, line.strip()])
+    return found
 
 
 def main() -> None:
@@ -571,6 +719,10 @@ def main() -> None:
         f"{time.perf_counter() - t0:.1f} s (nvcc in parallel)")
     for name, out in _build.BUILD_LOGS.items():
         log(f"phase 2: {name} -Xptxas -v\n{out.strip()}")
+    spills = bf16_spills(_build.BUILD_LOGS)
+    if spills:
+        raise AssertionError(f"phase 2: bf16 (TMA + wgmma) kernels spill: {spills}")
+    log("phase 2: no bf16 (TMA + wgmma) kernel spills")
 
     worst = check_kernel_grid()
     sal_worst = check_sal_kernel_grid()
@@ -602,6 +754,7 @@ def main() -> None:
         )
     shapes = time_kernel()
     sal_shape = time_sal_kernel()
+    ablations = time_ablations()
 
     per_batch = lambda key: 12 * shapes[0][key] + 12 * shapes[1][key]
     kernels = [{
@@ -609,6 +762,7 @@ def main() -> None:
         "route": "cuda",
         "source": "phoneme_vqa_torch/csrc/flash_attention.cu",
         "replaces": "phoneme_vqa_tpu/ops/flash_attention.py:71",
+        "design": DESIGN,
         "launches": served["launches"]["flash_attention"],
         "max_abs_err": max(worst.values()),
         "max_err_f32": worst[torch.float32],
@@ -620,11 +774,13 @@ def main() -> None:
         "bound_by": "bytes" if all(s["bound_by"] == "bytes" for s in shapes) else "operations",
         "library_ms": per_batch("library_ms"),
         "shapes": shapes,
+        "ablations": ablations["flash_attention"],
     }, {
         "name": "sal_fused_attention",
         "route": "cuda",
         "source": "phoneme_vqa_torch/csrc/sal_fused_attention.cu",
         "replaces": "phoneme_vqa_tpu/ops/sal_fused_attention.py:133",
+        "design": DESIGN,
         "launches": sal_served["launches"]["sal_fused_attention"],
         "max_abs_err": max(sal_worst.values()),
         "max_err_f32": sal_worst[torch.float32],
@@ -636,6 +792,7 @@ def main() -> None:
         "bound_by": sal_shape["bound_by"],
         "library_ms": n_t5 * sal_shape["library_ms"],
         "shapes": [sal_shape],
+        "ablations": ablations["sal_fused_attention"],
     }]
     log(json.dumps({"serving": {"latr": served, "sal": sal_served},
                     "end_to_end_f32": {"latr": e2e, "sal": sal_e2e}, "card": card}))

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import NEG_INF, dot_product_attention
+from ..ops.layout import kernel_operand
 from ..ops.rel_bias import relative_position_bucket
 
 Cache = Dict[str, torch.Tensor]
@@ -161,14 +162,16 @@ class RelativeBias(nn.Module):
         )
 
     def forward(self, qlen: int, klen: int) -> torch.Tensor:
-        """(1, H, qlen, klen) f32, contiguous."""
+        """(1, H, qlen, klen) f32 with rows 16 bytes apart (``ops.layout.
+        kernel_operand``: the storage pads klen to a multiple of 4), so the
+        attention kernels read it in place in every layer of the stack."""
         device = self.rel_embedding.weight.device
         ctx = torch.arange(qlen, device=device)[:, None]
         mem = torch.arange(klen, device=device)[None, :]
         buckets = relative_position_bucket(
             mem - ctx, self.bidirectional, self.num_buckets, self.max_distance
         )
-        return self.rel_embedding(buckets).permute(2, 0, 1)[None].contiguous()
+        return kernel_operand(self.rel_embedding(buckets).permute(2, 0, 1)[None])[0]
 
 
 class T5EncoderBlock(nn.Module):

@@ -5,7 +5,8 @@ first use it is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 ``_build/<name>_<digest>.so``, keyed by a hash of the source, the headers
 it may include (``csrc/*.cuh``) and the flags, and bound with ``ctypes`` by
 its wrapper module. :func:`build` starts one ``nvcc`` per source that is not
-built yet, all together, and waits for them all.
+built yet, all together, and waits for them all; :func:`call` is how a
+wrapper calls a built kernel's entry point.
 """
 
 from __future__ import annotations
@@ -27,6 +28,29 @@ NVCC_FLAGS = [
 ]
 
 BUILD_LOGS: Dict[str, str] = {}  # kernel name -> what nvcc printed (-Xptxas -v)
+ERR_TENSOR_MAP = 1000  # csrc/attention_core.cuh: a layout TMA refuses
+
+
+def call(fn, device, *args) -> int:
+    """``fn(*args, stream)`` with ``device`` (a CUDA ``torch.device``) the
+    current device and ``stream`` its current stream. The device is switched
+    only when another one is current, and the stream is read as a raw handle
+    (no ``torch.cuda.Stream`` object is built): both cost host time on every
+    launch."""
+    import torch
+
+    index = torch.cuda.current_device() if device.index is None else device.index
+    if index == torch.cuda.current_device():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+
+
+def describe(err: int) -> str:
+    """A kernel source's launch error code in words."""
+    if err == ERR_TENSOR_MAP:
+        return "cuTensorMapEncodeTiled refused a tensor map (layout or driver)"
+    return f"CUDA error {err}"
 
 
 def source(name: str) -> str:

@@ -65,7 +65,9 @@ def dot_product_attention(
     Lq == Lk launches the SaL kernel; any other ``FusedSalBias`` is
     materialized first. Then a CUDA call with Lq >= 16 and a 2-D key mask (or
     none) launches the fused kernel; every other call (CPU tensors, one-token
-    decode steps) takes the plain version."""
+    decode steps) takes the plain version. The kernels read q, k and v in
+    place (the models' transposed views included); only a tensor whose layout
+    they do not take is copied (``any_layout``, ``ops.layout.kernel_operand``)."""
     from .sal_fused_attention import FusedSalBias
 
     if isinstance(bias, FusedSalBias):
@@ -78,8 +80,8 @@ def dot_product_attention(
                 else key_mask.to(torch.int32).contiguous()
             )
             return sal_fused_attention(
-                q.contiguous(), k.contiguous(), v.contiguous(), bias.bias1d.contiguous(),
-                bias.cell_bias.contiguous(), bias.cell.to(torch.int32).contiguous(), mask,
+                q, k, v, bias.bias1d, bias.cell_bias.contiguous(),
+                bias.cell.to(torch.int32).contiguous(), mask, any_layout=True,
             )
         bias = bias.materialize()
     use_kernel = (
@@ -91,8 +93,6 @@ def dot_product_attention(
         from .flash_attention import fused_attention
 
         mask = None if key_mask is None else key_mask.to(torch.int32).contiguous()
-        b = None if bias is None else bias.float().contiguous()
-        return fused_attention(
-            q.contiguous(), k.contiguous(), v.contiguous(), b, mask, causal, scale
-        )
+        b = None if bias is None else bias.float()
+        return fused_attention(q, k, v, b, mask, causal, scale, any_layout=True)
     return reference_attention(q, k, v, bias, key_mask, causal, scale)

@@ -17,7 +17,9 @@ factored form instead (:class:`FusedSalBias`):
 with ``nvcc`` at first use, ``ops/_build.py``; bound with ``ctypes``), which
 rebuilds the bias inside its tiles, for CUDA tensors and raises on anything
 it does not take; for CPU tensors it computes the plain version,
-:func:`sal_reference_attention`. ``LAUNCHES`` counts kernel launches.
+:func:`sal_reference_attention`. q, k and v are read in place by strides
+(``ops/layout.py``) and the output is written as (B, L, H, D) storage,
+returned as its (B, H, L, D) view. ``LAUNCHES`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch
 
 from . import _build
 from .attention import reference_attention
+from .layout import empty_output, kernel_operand
 
 NAME = "sal_fused_attention"
 SOURCE = _build.source(NAME)
@@ -80,6 +83,7 @@ def _load():
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # bias1d, cell_bias, cell
             ctypes.c_void_p, ctypes.c_void_p,  # mask, out
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B H L D C
+            ctypes.POINTER(ctypes.c_longlong),  # strides: q, k, v, out (b, h, l), bias1d (h, l)
             ctypes.c_int, ctypes.c_int,  # is_bf16, table_is_bf16
             ctypes.c_void_p,  # stream
         ]
@@ -88,7 +92,10 @@ def _load():
     return _lib
 
 
-def _check(q, k, v, bias1d, cell_bias, cell, key_mask):
+def _check(q, k, v, bias1d, cell_bias, cell, key_mask, any_layout):
+    """Raises ValueError on what the kernel does not take; returns (tensor,
+    outer strides) of q, k and v, each a copy where ``any_layout`` lets one
+    be made of a layout the kernel does not take."""
     def fail(msg):
         raise ValueError(f"sal_fused_attention: {msg}")
 
@@ -102,14 +109,13 @@ def _check(q, k, v, bias1d, cell_bias, cell, key_mask):
     b, h, l, d = q.shape
     if d % 8 != 0 or d > 128:
         fail(f"head dim {d} must be a multiple of 8, at most 128")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        fail("q, k, v must be contiguous")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        fail("q, k, v must start 16-byte aligned")
+    qkv = [kernel_operand(t, None if any_layout else f"sal_fused_attention: {name}")
+           for name, t in (("q", q), ("k", k), ("v", v))]
     for name, t in (("bias1d", bias1d), ("cell_bias", cell_bias)):
-        if (t.device != q.device or t.dtype not in (torch.float32, torch.bfloat16)
-                or not t.is_contiguous()):
-            fail(f"{name} must be contiguous f32 or bf16 on {q.device}, got {t.dtype}")
+        if t.device != q.device or t.dtype not in (torch.float32, torch.bfloat16):
+            fail(f"{name} must be f32 or bf16 on {q.device}, got {t.dtype}")
+    if not cell_bias.is_contiguous():
+        fail("cell_bias must be contiguous")
     if cell_bias.dtype != bias1d.dtype:
         fail(f"bias1d ({bias1d.dtype}) and cell_bias ({cell_bias.dtype}) must share a type")
     if tuple(bias1d.shape) != (h, l, l):
@@ -121,6 +127,7 @@ def _check(q, k, v, bias1d, cell_bias, cell, key_mask):
         if t is not None and (t.device != q.device or t.dtype != torch.int32
                               or not t.is_contiguous() or tuple(t.shape) != (b, l)):
             fail(f"{name} must be contiguous int32 ({b}, {l}) on {q.device}")
+    return qkv
 
 
 def sal_fused_attention(
@@ -131,25 +138,32 @@ def sal_fused_attention(
     cell_bias: torch.Tensor,  # (H, C, C), C <= 128, bias1d's type
     cell: torch.Tensor,  # (B, L) int32 in [0, C); larger ids read the sentinel
     key_mask: Optional[torch.Tensor],  # (B, L) int32, nonzero = attend; None = all
+    any_layout: bool = False,
 ) -> torch.Tensor:
     """softmax(q·kᵀ + bias1d[h] + cell_bias[h][cell_q, cell_k], masked) · v,
-    output in q's dtype."""
+    output in q's dtype.
+
+    On the card q, k and v are (B, H, L, D) views the kernel takes in place
+    (``ops.layout.kernel_operand``); it raises on others, or with
+    ``any_layout`` copies them into a layout it takes. A bias1d whose rows
+    are not 16-byte aligned is copied into padded rows first."""
     global LAUNCHES
     if q.device.type == "cpu":
         return sal_reference_attention(q, k, v, bias1d, cell_bias, cell, key_mask)
-    _check(q, k, v, bias1d, cell_bias, cell, key_mask)
+    (q, q_st), (k, k_st), (v, v_st) = _check(q, k, v, bias1d, cell_bias, cell, key_mask,
+                                             any_layout)
     fn = _load().sal_fused_attention_fwd
     b, h, l, d = q.shape
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    with torch.cuda.device(q.device):
-        err = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias1d.data_ptr(), cell_bias.data_ptr(),
-            cell.data_ptr(), None if key_mask is None else key_mask.data_ptr(),
-            out.data_ptr(), b, h, l, d, cell_bias.shape[-1],
-            int(q.dtype == torch.bfloat16), int(bias1d.dtype == torch.bfloat16),
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
+    out, out_st = empty_output(q)
+    bias1d, bias1d_st = kernel_operand(bias1d)
+    strides = (ctypes.c_longlong * 14)(*q_st, *k_st, *v_st, *out_st, *bias1d_st)
+    err = _build.call(
+        fn, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), bias1d.data_ptr(),
+        cell_bias.data_ptr(), cell.data_ptr(), None if key_mask is None else key_mask.data_ptr(),
+        out.data_ptr(), b, h, l, d, cell_bias.shape[-1], strides,
+        int(q.dtype == torch.bfloat16), int(bias1d.dtype == torch.bfloat16),
+    )
     if err != 0:
-        raise RuntimeError(f"sal_fused_attention kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"sal_fused_attention kernel launch failed: {_build.describe(err)}")
     LAUNCHES += 1
     return out

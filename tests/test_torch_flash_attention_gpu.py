@@ -55,8 +55,8 @@ def _compare(q, k, v, bias, mask, causal, scale):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("length", [16, 197, 327, 131, 512])
-@pytest.mark.parametrize("d", [64, 32])
+@pytest.mark.parametrize("length", [16, 37, 131, 197, 327, 336, 512])
+@pytest.mark.parametrize("d", [64, 32, 128])
 def test_kernel_matches_plain_over_options(cuda, dtype, length, d):
     b, h = 2, 3
     q, k, v, bias_full, mask = _inputs(b, h, length, length, d, dtype, cuda)
@@ -68,9 +68,37 @@ def test_kernel_matches_plain_over_options(cuda, dtype, length, d):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_kernel_cross_attention_lengths(cuda, dtype):
-    q, k, v, _, mask = _inputs(2, 4, 20, 327, 64, dtype, cuda, seed=1)
-    _compare(q, k, v, None, mask, False, None)
+@pytest.mark.parametrize("causal", [False, True])
+def test_kernel_cross_attention_lengths(cuda, dtype, causal):
+    q, k, v, bias, mask = _inputs(2, 4, 20, 327, 64, dtype, cuda, seed=1)
+    _compare(q, k, v, None, mask, causal, None)
+    _compare(q, k, v, bias[:1].contiguous(), mask, causal, None)
+
+
+def _as_model_views(*xs):
+    """(B, H, L, D) views of (B, L, H, D) storage, as the models hand them over."""
+    return tuple(x.transpose(1, 2).contiguous().transpose(1, 2) for x in xs)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("lq,lk", [(37, 37), (197, 197), (20, 327)])
+def test_strided_views_equal_contiguous_bit_for_bit(cuda, dtype, d, lq, lk):
+    q, k, v, bias, mask = _inputs(2, 3, lq, lk, d, dtype, cuda, seed=2)
+    qv, kv, vv = _as_model_views(q, k, v)
+    assert not qv.is_contiguous()
+    for b, causal, scale in ((None, False, d**-0.5), (bias[:1].contiguous(), True, None),
+                             (bias, False, None)):
+        want = fa.fused_attention(q, k, v, b, mask, causal, scale)
+        got = fa.fused_attention(qv, kv, vv, b, mask, causal, scale)
+        torch.cuda.synchronize()
+        assert got.stride() == want.stride()  # (B, L, H, D) storage either way
+        assert torch.equal(got, want)
+        # a bias view with padded rows is read in place and gives the same
+        padded = torch.zeros(*b.shape[:-1], lk + 5, device=cuda)[..., :lk] if b is not None else None
+        if padded is not None:
+            padded.copy_(b)
+            assert torch.equal(fa.fused_attention(qv, kv, vv, padded, mask, causal, scale), want)
 
 
 def test_dispatch_launches_kernel_only_from_sixteen_rows(cuda):
@@ -86,8 +114,10 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     q, k, v, bias, mask = _inputs(1, 2, 32, 32, 64, torch.float32, cuda)
     with pytest.raises(ValueError):
         fa.fused_attention(q.half(), k.half(), v.half())
-    with pytest.raises(ValueError):
-        fa.fused_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
+    with pytest.raises(ValueError):  # rows 65 floats apart: not a multiple of 16 bytes
+        fa.fused_attention(torch.zeros(1, 2, 32, 65, device=cuda)[..., :64], k, v)
+    with pytest.raises(ValueError):  # a non-unit stride along D
+        fa.fused_attention(torch.zeros(1, 2, 32, 128, device=cuda)[..., ::2], k, v)
     with pytest.raises(ValueError):
         fa.fused_attention(q[..., :60].contiguous(), k[..., :60].contiguous(),
                            v[..., :60].contiguous())

@@ -73,8 +73,8 @@ def _compare(q, k, v, bias1d, cb, cell, mask):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("length", [8, 37, 131, 336, 512])
-@pytest.mark.parametrize("d", [64, 32])
+@pytest.mark.parametrize("length", [8, 16, 37, 131, 197, 327, 336, 512])
+@pytest.mark.parametrize("d", [64, 32, 128])
 def test_kernel_matches_plain_over_options(cuda, dtype, length, d):
     for table_dtype, use_mask, all_sentinel in itertools.product(
         (torch.float32, torch.bfloat16), (True, False), (False, True)
@@ -87,6 +87,23 @@ def test_kernel_matches_plain_over_options(cuda, dtype, length, d):
 def test_kernel_at_the_serving_shape(cuda):
     args = _inputs(32, 12, 336, 64, torch.bfloat16, torch.bfloat16, cuda, seed=1)
     _compare(*args)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("table_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_strided_views_equal_contiguous_bit_for_bit(cuda, dtype, table_dtype, d):
+    q, k, v, bias1d, cb, cell, mask = _inputs(2, 3, 131, d, dtype, table_dtype, cuda, seed=3)
+    want = sfa.sal_fused_attention(q, k, v, bias1d, cb, cell, mask)
+    qv, kv, vv = (x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v))
+    assert not qv.is_contiguous()
+    got = sfa.sal_fused_attention(qv, kv, vv, bias1d, cb, cell, mask)
+    torch.cuda.synchronize()
+    assert got.stride() == want.stride()  # (B, L, H, D) storage either way
+    assert torch.equal(got, want)
+    # through the dispatch, as the model calls it
+    fused = sfa.FusedSalBias(bias1d, cb, cell)
+    assert torch.equal(dot_product_attention(qv, kv, vv, fused, key_mask=mask.bool()), want)
 
 
 def test_dispatch_launches_the_sal_kernel_for_a_fused_bias(cuda):
