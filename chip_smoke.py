@@ -13,6 +13,13 @@ Phases (any failure exits non-zero; nothing is caught and carried past):
 3b. the SaL kernel against its plain version (materialize the bias, then
     plain attention) over dtypes, table types, lengths, head dims, masks and
     cells, and at the SaL serving shape; views bit-equal as in phase 3
+3c. gradients through the kernels' autograd.Functions (kernel forward,
+    plain recompute backward) against the plain path's: over the phase-3
+    option grid, at the four attention roles of a LaTr-base train step (ViT,
+    T5 encoder, decoder self-attention 127 x 127 causal + bias + mask,
+    cross-attention 127 x 327 + mask; B=16) in bf16 and f32, and the SaL
+    Function at the SaL serving shape; every input that requires grad gets
+    a finite, nonzero gradient
 4.  full-width LaTr-base (seeded random weights) answers synthetic requests
     through ServingEngine at batch 32 in bf16; the attention kernel must
     launch 24 times per batch (12 ViT + 12 T5 encoder layers), the SaL one 0
@@ -29,6 +36,20 @@ Phases (any failure exits non-zero; nothing is caught and carried past):
     taken away (the T5 encoder without its bias, its mask or both, with
     contiguous q, k, v; the SaL shape with f32 tables, and through the
     attention kernel with its key mask only, i.e. without the SaL policy)
+6d. attention kernel, plain and library times at the four roles of a
+    LaTr-base train step (B=16), and the plain backward recompute of the
+    three roles that carry gradients
+7.  full-width LaTr-base (bf16 compute, f32 masters, dropout 0.1, the LaTr
+    preset's adam at LR 5e-5, batch 16, decoder length 127) trains one epoch
+    of 20 steps through LaTrExecutor on a synthetic fixture, evaluates,
+    saves last/best, restores, and predicts into results.json; every loss
+    finite, 48 attention-kernel launches per train step and 24 per eval or
+    predict batch; one batch repeated for 10 steps lowers its loss; ms per
+    step, samples/s, the forward / backward / optimizer split, the device
+    busy share and kernel ms (profiler), peak memory
+7b. one f32 train step at full width (batch 4): loss, every gradient and the
+    parameters after the step through the kernels against the same model
+    with plain attention
 
 Prints a {"kernels": [...]} line, the card line, and last
 {"ok": true, "device": {...}}. Needs the repo's phoneme_vqa_torch package;
@@ -52,6 +73,7 @@ import torch
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: no CUDA card is available")
 
+from phoneme_vqa_torch.config import Config  # noqa: E402
 from phoneme_vqa_torch.data import synthetic  # noqa: E402
 from phoneme_vqa_torch.data.adapters import textlayout_obj_adapt  # noqa: E402
 from phoneme_vqa_torch.data.adapters import textlayout_ocr_adapt  # noqa: E402
@@ -68,6 +90,8 @@ from phoneme_vqa_torch.ops import layout  # noqa: E402
 from phoneme_vqa_torch.ops import sal_fused_attention as sfa  # noqa: E402
 from phoneme_vqa_torch.serving import SaLInputs, ServingEngine, featurize_requests  # noqa: E402
 from phoneme_vqa_torch.tokenizers.backbone import FallbackSubwordTokenizer  # noqa: E402
+from phoneme_vqa_torch.train import LaTrExecutor  # noqa: E402
+from phoneme_vqa_torch.train import state as train_state  # noqa: E402
 
 DEVICE = torch.device("cuda")
 BATCH = 32
@@ -101,6 +125,21 @@ TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 # the LM head; logits are O(1)
 LOGITS_TOL = 2e-3
 TIE_MARGIN = 1e-4
+# phase 7b, one f32 train step kernels vs plain. The f32 kernel parts from
+# cuBLAS by ~2e-6 a call (phase 3: 1.7e-6); through the 48 attention layers
+# of the random-init model that grows to ~4e-4 in the logits (phase 5) and
+# to ~1e-2 of the norm of the most sensitive gradients (the decoder's self-
+# attention q/k, where a softmax over near-uniform weights cancels). So the
+# yardstick is the plain path disturbed by as much (NOISE, relative, on
+# every attention output): a tensor's kernel-vs-plain gradient gap may be at
+# most GRAD_NOISE_FACTOR times its noisy-vs-plain gap (plus GRAD_FLOOR, the
+# run-to-run spread of the gradients summed with atomics). A broken
+# gradient path parts by O(1). A first adam step moves a parameter by ~lr *
+# sign(g), so where |g| is near those differences it parts by up to 2 lr.
+LOSS_RTOL = 1e-4
+NOISE = 2e-6
+GRAD_NOISE_FACTOR = 3.0
+GRAD_FLOOR = 1e-6
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOP_PER_S = 989e12  # dense bf16 tensor-core peak
 KERNELS = {"flash_attention": fa, "sal_fused_attention": sfa}  # name -> wrapper module
@@ -324,6 +363,123 @@ def sal_serving_shape():
                                  dtype=torch.int32)
     mask[-1] = 1
     return q, k, v, bias1d, cb, cell, mask
+
+
+# -- phase 3c -----------------------------------------------------------------
+
+TRAIN_BATCH = 16  # configs/latr.yaml TRAIN_BATCH_SIZE
+ANSWER_LEN = 128  # configs/latr.yaml max_a_length: the decoder reads 127 positions
+DEC_L = ANSWER_LEN - 1
+ENC_L = 197 + OCR_LEN + Q_LEN  # ViT patches + CLS, OCR, question: 327
+
+
+def padded_bias(lq, lk, seed):
+    """A (1, 12, Lq, Lk) f32 bias with rows 16 bytes apart, as the T5
+    RelativeBias builds it."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    return layout.kernel_operand(torch.randn(1, 12, lq, lk, generator=g, device=DEVICE))[0]
+
+
+def training_shapes(dtype, batch=TRAIN_BATCH):
+    """(role, q, k, v, bias, mask, causal, scale) for the four attention roles
+    of a LaTr-base train step, q, k, v in the models' layout: the ViT (no
+    gradient in training: it is frozen), the T5 encoder, the decoder
+    self-attention and the cross-attention."""
+    q, k, v, _, _ = _attn_inputs(batch, 12, 197, 197, 64, dtype, seed=20)
+    vit = ("vit", *model_layout(q, k, v), None, None, False, 64**-0.5)
+    q, k, v, _, mask = _attn_inputs(batch, 12, ENC_L, ENC_L, 64, dtype, seed=21)
+    mask[-1] = 1
+    enc = ("t5_encoder", *model_layout(q, k, v), padded_bias(ENC_L, ENC_L, 22), mask, False, None)
+    q, k, v, _, _ = _attn_inputs(batch, 12, DEC_L, DEC_L, 64, dtype, seed=23)
+    lens = torch.randint(2, DEC_L, (batch,), generator=torch.Generator().manual_seed(24))
+    dec_mask = (torch.arange(DEC_L)[None] < lens[:, None]).to(torch.int32).to(DEVICE)  # answers
+    dec = ("t5_decoder_self", *model_layout(q, k, v), padded_bias(DEC_L, DEC_L, 25), dec_mask,
+           True, None)
+    q, _, _, _, _ = _attn_inputs(batch, 12, DEC_L, 1, 64, dtype, seed=26)
+    _, k, v, _, _ = _attn_inputs(batch, 12, 1, ENC_L, 64, dtype, seed=27)
+    cross = ("t5_cross", *model_layout(q, k, v), None, mask, False, None)
+    return [vit, enc, dec, cross]
+
+
+def _grads(fn, tensors, w):
+    """(output, gradient of sum(out * w) for every tensor input) of
+    ``fn(*tensors)``, each tensor a fresh leaf in its own layout."""
+    leaves = [t if t is None else t.detach().requires_grad_() for t in tensors]
+    out = fn(*leaves)
+    wanted = [t for t in leaves if t is not None]
+    return out, torch.autograd.grad((out.float() * w).sum(), wanted)
+
+
+def _check_grads(kernel_fn, plain_fn, tensors, tol, what) -> float:
+    """Gradients through ``kernel_fn`` (an autograd.Function on the kernel)
+    against ``plain_fn``'s on the same inputs: every input that requires
+    grad gets a finite, nonzero gradient, each within ``tol`` of the plain
+    one (the backward is the same plain recompute on the same inputs and
+    upstream gradient, so they agree to the bit unless cuBLAS picks another
+    algorithm); the kernel's forward within ``tol`` of the f32 plain result.
+    Returns the largest gradient difference."""
+    shape = tensors[0].shape[:3] + (tensors[2].shape[3],)
+    w = torch.randn(shape, generator=torch.Generator(device=DEVICE).manual_seed(9), device=DEVICE)
+    k_out, k_grads = _grads(kernel_fn, tensors, w)
+    _, p_grads = _grads(plain_fn, tensors, w)
+    with torch.no_grad():  # the forward against the f32 plain result, as in phase 3
+        want = plain_fn(*(t if t is None else t.float() for t in tensors))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(k_out.float(), want, atol=tol, rtol=tol)
+    worst = 0.0
+    for i, (g, ref) in enumerate(zip(k_grads, p_grads)):
+        if g is None or not torch.isfinite(g).all() or not g.abs().max() > 0:
+            raise AssertionError(f"phase 3c: {what}: input {i} got no usable gradient")
+        worst = max(worst, float((g.float() - ref.float()).abs().max()))
+        torch.testing.assert_close(g.float(), ref.float(), atol=tol, rtol=tol)
+    return worst
+
+
+def check_kernel_grads() -> dict:
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    reset_launches()
+    n = 0
+    fn = attn_mod.FusedAttentionFn.apply
+    for dtype, length, d in itertools.product(worst, (16, 37, 131, 327), (64, 32, 128)):
+        q, k, v, bias_full, mask = _attn_inputs(2, 3, length, length, d, dtype)
+        mask[-1] = 1
+        for bias_kind, use_mask, causal, scale in itertools.product(
+            ("none", "one", "batch"), (False, True), (False, True), (None, d**-0.5)
+        ):
+            bias = {"none": None, "one": bias_full[:1].contiguous(), "batch": bias_full}[bias_kind]
+            m = mask if use_mask else None
+            err = _check_grads(
+                lambda q_, k_, v_, b_: fn(q_, k_, v_, b_, m, causal, scale),
+                lambda q_, k_, v_, b_: attn_mod.reference_attention(q_, k_, v_, b_, m, causal,
+                                                                    scale),
+                (q, k, v, bias), TOL[dtype], f"{dtype} L={length} d={d} {bias_kind}")
+            worst[dtype] = max(worst[dtype], err)
+            n += 1
+    roles = {}
+    for dtype in worst:
+        for role, q, k, v, bias, mask, causal, scale in training_shapes(dtype):
+            err = _check_grads(
+                lambda q_, k_, v_, b_: fn(q_, k_, v_, b_, mask, causal, scale),
+                lambda q_, k_, v_, b_: attn_mod.reference_attention(q_, k_, v_, b_, mask, causal,
+                                                                    scale),
+                (q, k, v, bias), TOL[dtype], f"{dtype} {role}")
+            worst[dtype] = max(worst[dtype], err)
+            roles[f"{role}_{str(dtype).replace('torch.', '')}"] = err
+            n += 1
+    check_launches("phase 3c", launches(), {"flash_attention": n, "sal_fused_attention": 0})
+    q, k, v, bias1d, cb, cell, mask = sal_serving_shape()
+    sal_err = _check_grads(
+        lambda *a: sfa.SalAttentionFn.apply(*a, cell, mask),
+        lambda *a: sfa.sal_reference_attention(*a, cell, mask),
+        (q, k, v, bias1d, cb), TOL[torch.bfloat16], "SaL serving shape")
+    check_launches("phase 3c", launches(), {"flash_attention": n, "sal_fused_attention": 1})
+    log(f"phase 3c: gradients through FusedAttentionFn == plain over {n} cases (the phase-3 "
+        f"grid and the four training roles at B={TRAIN_BATCH}); max |grad err| f32 "
+        f"{worst[torch.float32]:.3e}, bf16 {worst[torch.bfloat16]:.3e} (tol {TOL}); by role "
+        f"{json.dumps(roles)}; SalAttentionFn at the SaL serving shape {sal_err:.3e}; one "
+        f"kernel launch per forward, none in a backward")
+    return {"max_grad_err_f32": worst[torch.float32], "max_grad_err_bf16": worst[torch.bfloat16],
+            "train_roles": roles, "sal_max_grad_err": sal_err, "cases": n + 1}
 
 
 # -- phases 4 and 4b ----------------------------------------------------------
@@ -611,16 +767,18 @@ def _qkvo_bytes_flops(q, k):
     return q.element_size() * (2 * b * h * lq * d + 2 * b * h * lk * d), 4 * b * h * lq * lk * d
 
 
-def _sdpa(q, k, v, bias, mask, scale):
-    """The library yardstick: SDPA on the same inputs, with the key mask
-    folded into the additive mask beforehand (timed here, used nowhere in the
-    port)."""
+def _sdpa(q, k, v, bias, mask, scale, causal=False):
+    """The library yardstick: SDPA on the same inputs, with the key mask (and
+    the causal mask) folded into the additive mask beforehand (timed here,
+    used nowhere in the port)."""
     add = torch.zeros(1, 1, 1, k.shape[2], device=DEVICE)
     if bias is not None:
         add = add + bias
     if mask is not None:
         add = add + torch.where(mask.bool(), 0.0, -1e9)[:, None, None, :]
-    sdpa_mask = None if bias is None and mask is None else add.to(q.dtype)
+    if causal:
+        add = add + torch.full((q.shape[2], k.shape[2]), -1e9, device=DEVICE).triu(1)
+    sdpa_mask = None if bias is None and mask is None and not causal else add.to(q.dtype)
     return lambda: torch.nn.functional.scaled_dot_product_attention(
         q, k, v, attn_mask=sdpa_mask, scale=1.0 if scale is None else scale)
 
@@ -693,6 +851,375 @@ def time_ablations() -> dict:
     return rows
 
 
+def time_train_shapes() -> list:
+    """Phase 6d: kernel, plain and SDPA ms per call at the four attention
+    roles of a LaTr-base train step (B=16, bf16), each with its bound; and
+    for the three roles that carry gradients, the plain backward recompute
+    (``reference_attention`` forward + autograd backward, what
+    ``FusedAttentionFn.backward`` runs) per call."""
+    rows = []
+    for role, q, k, v, bias, mask, causal, scale in training_shapes(torch.bfloat16):
+        kernel = lambda: fa.fused_attention(q, k, v, bias, mask, causal, scale)
+        plain = lambda: attn_mod.reference_attention(q, k, v, bias, mask, causal, scale)
+        library = _sdpa(q, k, v, bias, mask, scale, causal)
+        b, h, lq, d = q.shape
+        lk = k.shape[2]
+        # a causal call needs the lower triangle only
+        pairs = lq * (lq + 1) // 2 if causal else lq * lk
+        moved = q.element_size() * (2 * b * h * lq * d + 2 * b * h * lk * d)
+        moved += sum(0 if t is None else t.numel() * 4 for t in (bias, mask))
+        bound_ms, bound_by = _bound(moved, 4 * b * h * pairs * d)
+        row = {"shape": role, "q": list(q.shape), "lk": lk, "causal": causal,
+               "bias": None if bias is None else list(bias.shape), "mask": mask is not None,
+               "dtype": "bfloat16", **_time("ms", kernel), **_time("plain_ms", plain),
+               **_time("library_ms", library), **_split_time("", kernel),
+               **_split_time("library_", library), "bound_ms": bound_ms, "bound_by": bound_by}
+        if role != "vit":  # the frozen ViT runs under no_grad: no backward
+            leaves = [t if t is None else t.detach().requires_grad_() for t in (q, k, v, bias)]
+            wanted = [t for t in leaves if t is not None]
+            g = torch.randn(b, h, lq, d, device=DEVICE).to(q.dtype)
+
+            def recompute():
+                out = attn_mod.reference_attention(*leaves, mask, causal, scale)
+                torch.autograd.grad(out, wanted, g)
+
+            row.update(_time("recompute_backward_ms", recompute, iters=10, repeats=3))
+        rows.append(row)
+        log(f"phase 6d: {json.dumps(row)}")
+    return rows
+
+
+# -- phases 7 and 7b ----------------------------------------------------------
+
+TRAIN_STEPS = 20  # one epoch of the synthetic fixture at batch 16
+REPEAT_STEPS = 10
+
+
+def latr_train_config(paths, save_path, **over) -> Config:
+    """The LaTr preset (configs/latr.yaml) at full width as a dict Config,
+    on the synthetic fixture: adam (0.9, 0.98), eps 1e-9, LR 5e-5 decayed
+    0.95 per epoch, batch 16, answers of 128 tokens, dropout 0.1, bf16."""
+    return Config({**dict(
+        FULL, EXECUTOR="LaTr_Executor", MODEL_CLASS="LaTr", MODEL_MOD_CONFIG_CLASS="LaTr_config",
+        backbone_name="VietAI/vit5-base", SAVE=True, SAVE_PATH=save_path, LR=5e-5,
+        BETAS=[0.9, 0.98], NUM_EPOCHS=1, TRAIN_BATCH_SIZE=TRAIN_BATCH, EVAL_BATCH_SIZE=BATCH,
+        PREDICT_BATCH_SIZE=BATCH, max_eval_length=MAX_ANSWER, max_predict_length=ANSWER_LEN,
+        get_predict_score=True, ocr_path=paths["ocr"], base_img_path=paths["img"],
+        max_ocr_element=OCR_ELEMENTS, max_ocr_length=OCR_LEN, max_q_length=Q_LEN,
+        max_a_length=ANSWER_LEN, qa_train_path=paths["train"], qa_val_path=paths["val"],
+        qa_predict_path=paths["predict"], dropout_rate=0.1, DTYPE="bfloat16", SEED=SEED,
+    ), **over})
+
+
+def train_flops(batch) -> dict:
+    """Matrix-product operations of one LaTr-base train step at ``batch``
+    (2 per multiply-add): the forward's linear layers (2 x parameters x the
+    tokens through them), attention (4 x B x H x Lq x Lk x D; a causal call
+    its lower triangle) and the tied LM head; the backward twice the
+    forward of everything but the frozen ViT. The yardstick of 'Where the
+    time goes' in PERF.md."""
+    d, ff, h, dk, vocab = (T5_BASE[k] for k in ("d_model", "d_ff", "num_heads", "d_kv",
+                                                 "t5_vocab_size"))
+    n_enc, n_dec = T5_BASE["num_encoder_layers"], T5_BASE["num_t5_decoder_layers"]
+    hv, mlp, n_vit = FULL["vit_hidden_size"], FULL["vit_mlp_dim"], FULL["vit_num_layers"]
+    lv, patches = 197, 196
+    att = lambda lq, lk, causal=False: 4 * batch * h * dk * (lq * (lq + 1) // 2 if causal
+                                                              else lq * lk)
+    vit = 2 * batch * (patches * 3 * 16 * 16 * hv + lv * n_vit * (4 * hv * hv + 2 * hv * mlp))
+    vit += n_vit * att(lv, lv)
+    enc = 2 * batch * (lv * hv * d + ENC_L * n_enc * (4 * d * d + 3 * d * ff))
+    enc += n_enc * att(ENC_L, ENC_L)
+    dec = 2 * batch * n_dec * (DEC_L * (4 * d * d + 2 * d * d + 3 * d * ff) + ENC_L * 2 * d * d)
+    dec += n_dec * (att(DEC_L, DEC_L, True) + att(DEC_L, ENC_L)) + 2 * batch * DEC_L * d * vocab
+    forward = vit + enc + dec
+    return {"forward_tflop": forward / 1e12, "vit_tflop": vit / 1e12,
+            "step_tflop": (forward + 2 * (enc + dec)) / 1e12}
+
+
+def profile_train(ex, batches) -> dict:
+    """``ex.train_step`` over ``batches`` under torch.profiler: device busy
+    ms per step (sum of CUDA kernel times), device kernel launches per step,
+    the attention kernel's device ms and launches per step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for batch in batches:
+            ex.train_step(batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    n = len(batches)
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    ours = [e for e in kernels if "attn::attention_" in e.key]
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    return {
+        "profiled_ms_per_step": 1e3 * wall / n,
+        "device_busy_ms_per_step": sum(e.self_device_time_total for e in kernels) / 1e3 / n,
+        "device_kernel_launches_per_step": sum(e.count for e in kernels) / n,
+        "attention_kernel_ms_per_step": sum(e.self_device_time_total for e in ours) / 1e3 / n,
+        "attention_kernel_launches_per_step": sum(e.count for e in ours) / n,
+        "top_kernels_ms_per_step": {e.key[:90]: e.self_device_time_total / 1e3 / n for e in top},
+    }
+
+
+def check_losses(phase, losses) -> None:
+    bad = [i for i, x in enumerate(losses) if not np.isfinite(x)]
+    if bad:
+        raise AssertionError(f"{phase}: non-finite loss at steps {bad}: {losses}")
+
+
+@torch.no_grad()
+def eval_loss(ex, batch) -> float:
+    ex.model.eval()
+    return float(ex._loss_from_batch(ex._to_device(batch)))
+
+
+def train_fixture(root):
+    """The synthetic LaTr fixture with one epoch of TRAIN_STEPS batches."""
+    return synthetic.make_latr_fixture(os.path.join(root, "train"), n_images=8,
+                                       n_rows=TRAIN_BATCH * TRAIN_STEPS,
+                                       image_hw=FULL["vit_image_size"])
+
+
+def train_latr(paths, recompute_ms_per_step) -> dict:
+    """Phase 7 (see the module docstring)."""
+    # every ViT, T5 encoder, decoder self- and cross-attention layer: 48
+    per_step = FULL["vit_num_layers"] + T5_BASE["num_encoder_layers"] + \
+        2 * T5_BASE["num_t5_decoder_layers"]
+    per_eval = FULL["vit_num_layers"] + T5_BASE["num_encoder_layers"]  # 24
+    save = os.path.join(paths["root"], "ckpts")
+    config = latr_train_config(paths, save)
+    t0 = time.perf_counter()
+    ex = LaTrExecutor(config, "train", device=DEVICE)
+    setup_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in ex.state.params.values())
+    n_trainable = sum(ex.state.params[n].numel() for n in ex.state.opt_state["mu"])
+
+    losses = []
+    step = ex.train_step
+
+    def recorded(batch):
+        loss = step(batch)
+        losses.append(float(loss))
+        return loss
+
+    ex.train_step = recorded
+    reset_launches()
+    t0 = time.perf_counter()
+    ex.train()  # one epoch, then eval and last/best saves
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    del ex.train_step
+    n_eval = -(-len(ex.val_data) // BATCH)
+    check_losses("phase 7", losses)
+    if len(losses) != TRAIN_STEPS:
+        raise AssertionError(f"phase 7: {len(losses)} steps, want {TRAIN_STEPS}")
+    check_launches("phase 7 train()", launches(), {
+        "flash_attention": per_step * TRAIN_STEPS + per_eval * n_eval, "sal_fused_attention": 0})
+
+    restored = ex.ckpt.restore("last", DEVICE)
+    if (restored["step"], restored["epoch"]) != (TRAIN_STEPS, 1) or any(
+            not torch.equal(restored["params"][n], p) for n, p in ex.state.params.items()):
+        raise AssertionError("phase 7: last_ckp does not hold the trained masters")
+    if restored["opt_state"]["count"] != TRAIN_STEPS:
+        raise AssertionError("phase 7: last_ckp's optimizer count is not the step")
+    del restored
+    ckpt_bytes = os.path.getsize(os.path.join(save, "last_ckp"))
+
+    reset_launches()
+    t0 = time.perf_counter()
+    predictor = LaTrExecutor(config, "predict", predicttype="best", device=DEVICE)
+    results = predictor.run()
+    torch.cuda.synchronize()
+    predict_s = time.perf_counter() - t0
+    n_predict = -(-len(predictor.predict_data) // BATCH)
+    check_launches("phase 7 predict", launches(),
+                   {"flash_attention": per_eval * n_predict, "sal_fused_attention": 0})
+    with open(os.path.join(save, "results.json"), encoding="utf-8") as f:
+        if json.load(f) != results or len(results) != len(predictor.predict_data):
+            raise AssertionError("phase 7: results.json does not hold the predictions")
+    del predictor
+    torch.cuda.empty_cache()
+
+    # the step's cost, on batches of the fixture: the host clock around
+    # synchronized steps, then each part alone
+    batches = [b for b, _ in itertools.islice(
+        batch_iterator(ex.train_data, TRAIN_BATCH, shuffle=True, seed=99, drop_last=True), 8)]
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    ex.train_step(batches[0])
+    torch.cuda.synchronize()
+    check_launches("phase 7 one step", launches(),
+                   {"flash_attention": per_step, "sal_fused_attention": 0})
+    t0 = time.perf_counter()
+    for batch in batches[1:6]:
+        losses.append(float(ex.train_step(batch)))
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / 5
+    split = {"forward_ms": 0.0, "backward_ms": 0.0, "optimizer_ms": 0.0}
+    for batch in batches[6:8]:
+        tb = ex._to_device(batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = ex.forward_loss(tb)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        ex.apply_gradients()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for key, dt in zip(split, (t1 - t0, t2 - t1, t3 - t2)):
+            split[key] += 1e3 * dt / 2
+        losses.append(float(loss.detach()))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    prof = profile_train(ex, batches[:3])
+    check_losses("phase 7 timed steps", losses)
+
+    # one batch, REPEAT_STEPS steps: its loss without dropout must fall
+    batch = batches[0]
+    lr = ex._lr_schedule(ex.state.step)
+    before = eval_loss(ex, batch)
+    repeat = [float(ex.train_step(batch)) for _ in range(REPEAT_STEPS)]
+    after = eval_loss(ex, batch)
+    check_losses("phase 7 repeated batch", repeat)
+    if not after < before:
+        raise AssertionError(f"phase 7: {REPEAT_STEPS} steps on one batch at LR {lr} did not "
+                             f"lower its loss: {before} -> {after} ({repeat})")
+    flops = train_flops(TRAIN_BATCH)
+    out = {
+        "params_m": n_params / 1e6, "trainable_m": n_trainable / 1e6, "setup_s": setup_s,
+        "train_epoch_s": train_s, "steps": TRAIN_STEPS, "losses": losses[:TRAIN_STEPS],
+        "eval_batches": n_eval, "predict_s": predict_s, "predict_answers": [r["gens"][0][:60] for r in results[:2]],
+        "checkpoint_gb": ckpt_bytes / 1e9,
+        "launches_per_step": per_step, "launches_per_eval_batch": per_eval,
+        "ms_per_step": step_ms, "samples_per_s": 1e3 * TRAIN_BATCH / step_ms, **split,
+        "peak_memory_gb": peak_gb, **prof,
+        "device_busy_share": prof["device_busy_ms_per_step"] / step_ms,
+        "recompute_backward_ms_per_step": recompute_ms_per_step,
+        "recompute_share_of_step": recompute_ms_per_step / step_ms, **flops,
+        "share_of_bf16_peak": flops["step_tflop"] / (step_ms * 1e-3 * BF16_FLOP_PER_S / 1e12),
+        "repeat_lr": lr, "repeat_eval_loss": [before, after], "repeat_train_losses": repeat,
+    }
+    log(f"phase 7: LaTr-base trained {TRAIN_STEPS} steps at batch {TRAIN_BATCH} (bf16 compute, "
+        f"f32 masters, {n_trainable / 1e6:.1f}M trainable of {n_params / 1e6:.1f}M): "
+        f"{step_ms:.3f} ms/step, {out['samples_per_s']:.3f} samples/s; split {json.dumps(split)}; "
+        f"busy share {out['device_busy_share']:.3f}; attention kernel "
+        f"{prof['attention_kernel_ms_per_step']:.3f} ms/step in "
+        f"{prof['attention_kernel_launches_per_step']:.0f} launches (counted {per_step}); plain "
+        f"backward recompute {recompute_ms_per_step:.3f} ms/step; peak {peak_gb:.2f} GB; "
+        f"{flops['step_tflop']:.3f} TFLOP/step = {out['share_of_bf16_peak']:.4f} of the bf16 "
+        f"peak; one batch x {REPEAT_STEPS} at LR {lr:.3e}: eval loss {before:.4f} -> {after:.4f}")
+    log(f"phase 7: {json.dumps(out)}")
+    del ex
+    torch.cuda.empty_cache()
+    return out
+
+
+def noisy_attention(generator):
+    """``plain_attention`` with every output scaled by (1 + NOISE x N(0, 1)):
+    the plain path disturbed by as much as the f32 kernel parts from it."""
+
+    def attention(q, k, v, bias=None, key_mask=None, causal=False, scale=None):
+        out = plain_attention(q, k, v, bias, key_mask, causal, scale)
+        return out * (1 + NOISE * torch.randn(out.shape, generator=generator, device=out.device))
+
+    return attention
+
+
+def check_train_f32(paths) -> dict:
+    """Phase 7b: one f32 train step at full width, batch 4, through the
+    kernels, then from the same state with ``plain_attention``, then with
+    ``noisy_attention`` (the yardstick)."""
+    config = latr_train_config(paths, os.path.join(paths["root"], "f32"), DTYPE="float32",
+                               TRAIN_BATCH_SIZE=4, SAVE=False)
+    ex = LaTrExecutor(config, "train", device=DEVICE)
+    start = {n: p.detach().clone() for n, p in ex.state.params.items()}
+    batch, _ = next(batch_iterator(ex.train_data, 4))
+    lr = ex._lr_schedule(0)
+
+    def one_step(attention=None):
+        saved = (t5_mod.dot_product_attention, vit_mod.dot_product_attention)
+        if attention is not None:
+            t5_mod.dot_product_attention = vit_mod.dot_product_attention = attention
+        try:
+            return _one_step()
+        finally:
+            t5_mod.dot_product_attention, vit_mod.dot_product_attention = saved
+
+    def _one_step():
+        ex.load_params(start)
+        ex.state.step = 0
+        loss = ex.forward_loss(ex._to_device(batch))
+        loss.backward()
+        grads = {n: g.clone() for n, g in
+                 train_state.master_grads(ex.model, ex.state.params, ex._trainable).items()}
+        ex.apply_gradients()
+        torch.cuda.synchronize()
+        return (float(loss.detach()), grads,
+                {n: p.detach().clone() for n, p in ex.state.params.items()})
+
+    reset_launches()
+    k_loss, k_grads, k_params = one_step()
+    per_step = FULL["vit_num_layers"] + T5_BASE["num_encoder_layers"] + \
+        2 * T5_BASE["num_t5_decoder_layers"]
+    check_launches("phase 7b", launches(), {"flash_attention": per_step,
+                                            "sal_fused_attention": 0})
+    reset_launches()
+    p_loss, p_grads, p_params = one_step(plain_attention)
+    n_loss, n_grads, n_params = one_step(
+        noisy_attention(torch.Generator(device=DEVICE).manual_seed(SEED)))
+    check_launches("phase 7b", launches(), {name: 0 for name in KERNELS})
+    loss_err = abs(k_loss - p_loss) / abs(p_loss)
+    if not loss_err <= LOSS_RTOL:
+        raise AssertionError(f"phase 7b: loss {k_loss} vs plain {p_loss}")
+
+    def gap(grads):
+        return {n: float((grads[n] - g).norm() / g.norm()) for n, g in p_grads.items()}
+
+    rel, noise = gap(k_grads), gap(n_grads)
+    for n in rel:
+        if not rel[n] <= GRAD_NOISE_FACTOR * noise[n] + GRAD_FLOOR:
+            raise AssertionError(f"phase 7b: the gradient of {n} parts from the plain path by "
+                                 f"{rel[n]:.3e} of its norm, the noisy plain path by {noise[n]:.3e}")
+    far, n_entries = {"kernel": 0, "noisy": 0}, 0
+    for n, p in p_params.items():
+        if n.startswith("vit.") and not (torch.equal(k_params[n], start[n])
+                                         and torch.equal(p, start[n])):
+            raise AssertionError(f"phase 7b: the frozen {n} moved")
+        # p +- lr rounds to f32: up to an ulp of p on each side
+        bound = 2 * lr + 2 * torch.finfo(torch.float32).eps * p.abs()
+        for key, params in (("kernel", k_params), ("noisy", n_params)):
+            diff = (params[n] - p).abs()
+            if not bool((diff <= bound).all()):
+                raise AssertionError(f"phase 7b: {key} {n} parts by {float(diff.max())} > 2 lr")
+            far[key] += int((diff > 0.01 * lr).sum())
+        n_entries += p.numel()
+    if not far["kernel"] <= GRAD_NOISE_FACTOR * far["noisy"] + 100:
+        raise AssertionError(f"phase 7b: {far} of {n_entries} parameters part by > lr/100")
+    ratio = {n: rel[n] / max(noise[n], 1e-12) for n in rel}
+    worst, worst_ratio = max(rel, key=rel.get), max(ratio, key=ratio.get)
+    out = {"loss_kernel": k_loss, "loss_plain": p_loss, "loss_noisy": n_loss,
+           "loss_rel_err": loss_err,
+           "worst_grad_gap": [worst, rel[worst], noise[worst]],
+           "worst_grad_gap_over_noise": [worst_ratio, ratio[worst_ratio], rel[worst_ratio],
+                                         noise[worst_ratio]],
+           "params_parted_over_lr_100": far, "param_entries": n_entries, "lr": lr}
+    log(f"phase 7b: f32 train step (batch 4) kernels vs plain: loss {k_loss:.6f} vs {p_loss:.6f} "
+        f"(rel err {loss_err:.2e}, tol {LOSS_RTOL}; noisy plain {n_loss:.6f}); the widest "
+        f"gradient gap {worst} {rel[worst]:.2e} of its norm (noisy plain {noise[worst]:.2e}); "
+        f"kernel gap over noisy gap at most {ratio[worst_ratio]:.3f} ({worst_ratio}; allowed "
+        f"{GRAD_NOISE_FACTOR}); after the adam step at LR {lr:.1e} every parameter within 2 lr, "
+        f"{far['kernel']} of {n_entries} entries part by more than lr/100 ({far['noisy']} for "
+        f"the noisy plain path); the ViT unmoved")
+    log(f"phase 7b: {json.dumps(out)}")
+    del ex
+    torch.cuda.empty_cache()
+    return out
+
+
 def bf16_spills(logs: dict) -> list:
     """[kernel, entry, report] for every bf16 entry (attention_tma_kernel)
     whose -Xptxas -v report shows spill stores or loads."""
@@ -726,6 +1253,7 @@ def main() -> None:
 
     worst = check_kernel_grid()
     sal_worst = check_sal_kernel_grid()
+    grads = check_kernel_grads()
     tokenizer = FallbackSubwordTokenizer(T5_BASE["t5_vocab_size"])
     n_t5 = T5_BASE["num_encoder_layers"]
     n_dec = T5_BASE["num_t5_decoder_layers"]
@@ -752,11 +1280,19 @@ def main() -> None:
             {"flash_attention": 2 * n_dec, "sal_fused_attention": 2 * n_t5},
             os.path.join(root, "sal"),
         )
-    shapes = time_kernel()
-    sal_shape = time_sal_kernel()
-    ablations = time_ablations()
+        shapes = time_kernel()
+        sal_shape = time_sal_kernel()
+        ablations = time_ablations()
+        train_shapes = time_train_shapes()
+        # every encoder, decoder self and cross layer recomputes in the backward
+        recompute = sum(n_t5 * r["recompute_backward_ms"] for r in train_shapes
+                        if "recompute_backward_ms" in r)
+        paths = train_fixture(root)
+        trained = train_latr(paths, recompute)
+        train_f32 = check_train_f32(paths)
 
     per_batch = lambda key: 12 * shapes[0][key] + 12 * shapes[1][key]
+    per_step = lambda key: 12 * sum(r[key] for r in train_shapes)
     kernels = [{
         "name": "flash_attention",
         "route": "cuda",
@@ -775,6 +1311,19 @@ def main() -> None:
         "library_ms": per_batch("library_ms"),
         "shapes": shapes,
         "ablations": ablations["flash_attention"],
+        # training (phases 3c, 6d, 7): launches on the main path's train run,
+        # per step, and the four roles' times per step (12 layers each)
+        "launches_train": trained["launches_per_step"] * TRAIN_STEPS
+        + trained["launches_per_eval_batch"] * trained["eval_batches"],
+        "launches_per_train_step": trained["launches_per_step"],
+        "train_step_ms": per_step("ms"),
+        "train_step_plain_ms": per_step("plain_ms"),
+        "train_step_bound_ms": per_step("bound_ms"),
+        "train_step_library_ms": per_step("library_ms"),
+        "train_step_recompute_backward_ms": recompute,
+        "train_shapes": train_shapes,
+        "max_grad_err_f32": grads["max_grad_err_f32"],
+        "max_grad_err_bf16": grads["max_grad_err_bf16"],
     }, {
         "name": "sal_fused_attention",
         "route": "cuda",
@@ -793,9 +1342,12 @@ def main() -> None:
         "library_ms": n_t5 * sal_shape["library_ms"],
         "shapes": [sal_shape],
         "ablations": ablations["sal_fused_attention"],
+        "launches_train": 0,  # SaL training is not ported yet
+        "max_grad_err_bf16": grads["sal_max_grad_err"],
     }]
     log(json.dumps({"serving": {"latr": served, "sal": sal_served},
-                    "end_to_end_f32": {"latr": e2e, "sal": sal_e2e}, "card": card}))
+                    "end_to_end_f32": {"latr": e2e, "sal": sal_e2e},
+                    "train": {"latr": trained, "f32_step": train_f32}, "card": card}))
     log(json.dumps({"kernels": kernels}))
     log(card_line())
     print(json.dumps({"ok": True, "device": {

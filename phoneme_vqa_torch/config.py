@@ -1,7 +1,10 @@
 """Config: an attribute-access dict with the JAX package's key names.
 
-``Config`` accepts a plain dict, so the serving path needs no YAML parser;
-PyYAML is imported only inside :func:`get_config`, which reads a preset.
+``Config`` accepts a plain dict, so the serving path and ``chip_smoke.py``
+need no YAML parser; PyYAML is imported only inside :func:`get_config`,
+which the CLI (``phoneme_vqa_torch/run.py``) calls to read a preset. The
+presets' ``DEVICE`` key is not read: the port takes its device from the
+caller.
 """
 
 from __future__ import annotations
@@ -26,6 +29,15 @@ class Config(dict):
 
     def __setattr__(self, name: str, value: Any) -> None:
         self[name] = value
+
+    def require(self, *keys: str) -> None:
+        """Fail fast with every missing (or null) key named."""
+        missing = [k for k in keys if k not in self or self[k] is None]
+        if missing:
+            raise ValueError(
+                f"config is missing required key(s) {missing}: add them to the YAML preset "
+                f"(configs/ holds complete examples)"
+            )
 
 
 # Defaults for keys that executors read but some YAML presets omit.

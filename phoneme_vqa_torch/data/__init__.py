@@ -1,9 +1,9 @@
 from .adapters import textlayout_obj_adapt, textlayout_ocr_adapt
 from .latr import LaTrDataset
-from .loader import ArrayDataset, batch_iterator
+from .loader import ArrayDataset, batch_iterator, num_batches
 from .sal import SaLDataset
 
 __all__ = [
-    "ArrayDataset", "LaTrDataset", "SaLDataset", "batch_iterator", "textlayout_obj_adapt",
-    "textlayout_ocr_adapt",
+    "ArrayDataset", "LaTrDataset", "SaLDataset", "batch_iterator", "num_batches",
+    "textlayout_obj_adapt", "textlayout_ocr_adapt",
 ]

@@ -1,9 +1,12 @@
 """Fixed-shape array dataset + batch iterator.
 
 Featurization lands in packed, padded numpy arrays; batching is array
-slicing. The final partial batch is padded up to full size with a
-``n_valid`` count, so every batch has one shape (counterpart of
-``phoneme_vqa_tpu/data/loader.py``).
+slicing (counterpart of ``phoneme_vqa_tpu/data/loader.py``):
+
+* train: shuffled epochs (``np.random.RandomState(seed).permutation``, the
+  JAX package's order for the same seed), final partial batch dropped;
+* eval/predict: in order, the final partial batch padded up to full size
+  with a ``n_valid`` count, so every batch has one shape.
 """
 
 from __future__ import annotations
@@ -44,18 +47,29 @@ class ArrayDataset:
 def batch_iterator(
     dataset: ArrayDataset,
     batch_size: int,
+    shuffle: bool = False,
+    seed: int = 0,
+    drop_last: bool = False,
     pad_final: bool = True,
 ) -> Iterator[Tuple[Dict[str, np.ndarray], int]]:
-    """Yields (batch dict, n_valid) in order. Batches always have
-    ``batch_size`` rows when ``pad_final`` (the final short batch repeats its
-    last row)."""
+    """Yields (batch dict, n_valid). Batches always have ``batch_size`` rows
+    when ``pad_final`` (the final short batch repeats its last row); with
+    ``drop_last`` the final short batch is not yielded."""
     n = len(dataset)
+    order = np.random.RandomState(seed).permutation(n) if shuffle else np.arange(n)
     for start in range(0, n, batch_size):
-        idx = np.arange(start, min(start + batch_size, n))
+        idx = order[start : start + batch_size]
         n_valid = len(idx)
-        if n_valid < batch_size and pad_final:
-            idx = np.concatenate([idx, np.full(batch_size - n_valid, idx[-1], idx.dtype)])
+        if n_valid < batch_size:
+            if drop_last:
+                return
+            if pad_final:
+                idx = np.concatenate([idx, np.full(batch_size - n_valid, idx[-1], idx.dtype)])
         yield dataset.gather(idx), n_valid
+
+
+def num_batches(n_rows: int, batch_size: int, drop_last: bool = False) -> int:
+    return n_rows // batch_size if drop_last else -(-n_rows // batch_size)
 
 
 def make_image_loader(base_img_path: str, image_ids) -> Callable[[np.ndarray], np.ndarray]:

@@ -15,15 +15,21 @@ def make_generate_fn(model, max_length: int, with_scores: bool = False):
 
     @torch.inference_mode()
     def generate(batch):
-        """``batch``: dict of tensors on the model's device."""
-        cache, full_bias, enc_mask = model.encode_for_generate(batch, max_length)
+        """``batch``: dict of tensors on the model's device. Runs the model
+        in eval mode (no dropout) and leaves its mode as it found it."""
+        training = model.training
+        model.eval()
+        try:
+            cache, full_bias, enc_mask = model.encode_for_generate(batch, max_length)
 
-        def step(tokens, cache, i):
-            return model.decode_step(tokens, cache, i, full_bias, enc_mask)
+            def step(tokens, cache, i):
+                return model.decode_step(tokens, cache, i, full_bias, enc_mask)
 
-        return greedy_decode(
-            step, cache, enc_mask.shape[0], max_length, bos, eos, pad,
-            device=enc_mask.device, with_scores=with_scores,
-        )
+            return greedy_decode(
+                step, cache, enc_mask.shape[0], max_length, bos, eos, pad,
+                device=enc_mask.device, with_scores=with_scores,
+            )
+        finally:
+            model.train(training)
 
     return generate

@@ -4,8 +4,9 @@
 The encoder input is ``concat([ViT(img) -> visual_projector,
 T5-embed(ocr) + SpatialModule(coords), T5-embed(question)])`` with mask
 ``[ones(img), ocr_mask, src_mask]``, followed by a full T5 decoder and the
-tied LM head. This slice is inference only, so the frozen ViT needs no
-gradient stop.
+tied LM head. The ViT is frozen (``LaTrConfig.freeze_vit``, as in the
+reference): it runs under ``torch.no_grad``, so no gradient reaches it, and
+the trainer gives it no optimizer state.
 
 Model surface: ``forward(batch, labels, label_mask)`` for teacher-forced
 logits, ``fuse(batch)``, ``encode_for_generate(batch, max_len)`` and
@@ -34,6 +35,7 @@ class LaTrConfig:
     t5: T5Config = dataclasses.field(default_factory=T5Config)
     vit: ViTConfig = dataclasses.field(default_factory=ViTConfig)
     max_2d_position_embeddings: int = 1024
+    freeze_vit: bool = True
 
 
 def _dtype_of(config) -> torch.dtype:
@@ -127,7 +129,9 @@ class LaTr(nn.Module):
         ViT encodings (``vit_encodings``)."""
         if "vit_encodings" in batch:
             return self.visual_projector(batch["vit_encodings"].to(self.cfg.t5.dtype))
-        return self.visual_projector(self.vit(batch["pixel_values"]))
+        with torch.set_grad_enabled(torch.is_grad_enabled() and not self.cfg.freeze_vit):
+            encodings = self.vit(batch["pixel_values"])
+        return self.visual_projector(encodings)
 
     def fuse(self, batch):
         """[ViT patches | OCR embed + spatial | question] and its mask."""
@@ -161,32 +165,45 @@ class LaTr(nn.Module):
         return self.t5.decode_step(tokens, cache, index, full_bias, enc_mask)
 
 
-def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Seeded random init of every parameter, in ``named_parameters`` order:
-    matrices and lookup tables N(0, fan_in^-1/2) (a table's fan-in is its
-    row width, so token embeddings stay small beside the residual stream and
-    greedy answers depend on the inputs), spatial tables N(0, 1), position
+def random_params(model: nn.Module, generator: torch.Generator) -> Dict[str, torch.Tensor]:
+    """Seeded random values of every parameter, drawn in f32 in
+    ``named_parameters`` order on the parameters' device: matrices and
+    lookup tables N(0, fan_in^-1/2) (a table's fan-in is its row width, so
+    token embeddings stay small beside the residual stream and greedy
+    answers depend on the inputs), spatial tables N(0, 1), position
     embeddings N(0, 0.02), biases and the CLS token 0, norm scales (the
-    weight of every ``RMSNorm`` and ``LayerNorm``, whatever its name) 1."""
+    weight of every ``RMSNorm`` and ``LayerNorm``, whatever its name) 1.
+    The f32 source of a bf16 model's weights and of its training masters."""
     norm_weights = {
         f"{name}.weight" for name, m in model.named_modules() if isinstance(m, (RMSNorm, LayerNorm))
     }
+    out = {}
+    for name, p in model.named_parameters():
+        value = torch.empty(p.shape, dtype=torch.float32, device=p.device)
+        leaf = name.rsplit(".", 1)[-1]
+        if name.endswith("cls_token") or (leaf == "bias" and p.dim() == 1):
+            value.zero_()
+        elif name in norm_weights:
+            value.fill_(1.0)
+        elif name.endswith("position_embeddings"):
+            value.normal_(0.0, 0.02, generator=generator)
+        elif name.endswith("tables"):
+            value.normal_(0.0, 1.0, generator=generator)
+        elif "embedding" in name or "shared" in name:  # (rows, width) tables
+            value.normal_(0.0, p.shape[1] ** -0.5, generator=generator)
+        else:  # Linear (out, in) and Conv (out, in, kh, kw) weights
+            value.normal_(0.0, p[0].numel() ** -0.5, generator=generator)
+        out[name] = value
+    return out
+
+
+def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Fills every parameter with :func:`random_params`, rounded to the
+    parameter's dtype."""
+    params = dict(model.named_parameters())
     with torch.no_grad():
-        for name, p in model.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
-            if name.endswith("cls_token") or (leaf == "bias" and p.dim() == 1):
-                p.zero_()
-            elif name in norm_weights:
-                p.fill_(1.0)
-            elif name.endswith("position_embeddings"):
-                p.normal_(0.0, 0.02, generator=generator)
-            elif name.endswith("tables"):
-                p.normal_(0.0, 1.0, generator=generator)
-            elif "embedding" in name or "shared" in name:  # (rows, width) tables
-                p.normal_(0.0, p.shape[1] ** -0.5, generator=generator)
-            else:  # Linear (out, in) and Conv (out, in, kh, kw) weights
-                fan_in = p[0].numel()
-                p.normal_(0.0, fan_in**-0.5, generator=generator)
+        for name, value in random_params(model, generator).items():
+            params[name].copy_(value)
     return model
 
 

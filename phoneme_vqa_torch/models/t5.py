@@ -8,9 +8,16 @@
 * tied or untied lm head (tied heads scale hidden by d_model**-0.5)
 
 Submodules carry the flax scope names (``encoder.block_3.attn.q``), so the
-weight bridge (``models/bridge.py``) is a near 1:1 map. Linear weights live
-in the compute dtype (flax casts its f32 kernels to ``dtype`` at each call);
-norms, embeddings and the relative-bias table stay f32.
+weight bridge (``models/bridge.py``) is a near 1:1 map. Linear weights are
+held in the compute dtype: the cast flax makes of its f32 kernels at each
+call, made once. In training their f32 masters live in the train state
+(``train/state.py``), which refreshes these copies after every step; norms,
+embeddings and the relative-bias table are f32 and their own masters.
+
+Dropout (``dropout_rate``) sits where the JAX T5 puts it: on the FFN's inner
+activations and on every residual branch of the encoder and decoder
+blocks. It draws from the model's :class:`DropoutRNG` in training mode and
+is the identity in eval mode and in the decode steps.
 
 Decoding uses a stacked (L, B, H, T, d) self-attention cache and
 cross-attention K/V projected once per sequence in :meth:`T5Decoder.init_cache`.
@@ -21,6 +28,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -43,7 +51,7 @@ class T5Config:
     num_decoder_layers: int = 12
     relative_attention_num_buckets: int = 32
     relative_attention_max_distance: int = 128
-    dropout_rate: float = 0.1  # training only; this forward is inference (identity)
+    dropout_rate: float = 0.1  # in training mode only (``Dropout``)
     layer_norm_epsilon: float = 1e-6
     feed_forward_proj: str = "gated-gelu"  # or "relu"
     tie_word_embeddings: bool = True
@@ -55,6 +63,45 @@ class T5Config:
 
 def _linear(d_in: int, d_out: int, cfg: T5Config, device) -> nn.Linear:
     return nn.Linear(d_in, d_out, bias=False, device=device, dtype=cfg.dtype)
+
+
+class DropoutRNG:
+    """The random stream of one model's dropout sites: a ``torch.Generator``
+    on the inputs' device, seeded from ``(seed, step)``. The trainer reseeds
+    it before every step, as the JAX executor folds the step into its
+    dropout key (``jax.random.fold_in(base_rng, state.step)``); the two
+    frameworks draw different bits from the same seed."""
+
+    def __init__(self, seed: int = 0, step: int = 0):
+        self.reseed(seed, step)
+
+    def reseed(self, seed: int, step: int) -> None:
+        self.seed, self.step = int(seed), int(step)
+        self._generator = None
+
+    def generator(self, device: torch.device) -> torch.Generator:
+        if self._generator is None or self._generator.device != device:
+            mixed = np.random.SeedSequence([self.seed, self.step]).generate_state(1, np.uint64)[0]
+            self._generator = torch.Generator(device=device).manual_seed(int(mixed))
+        return self._generator
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout``: in training mode keeps each element with
+    probability ``1 - rate`` and scales it by ``1 / (1 - rate)``; the
+    identity in eval mode or at rate 0."""
+
+    def __init__(self, rate: float, rng: DropoutRNG):
+        super().__init__()
+        self.rate = rate
+        self.rng = rng
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        keep_prob = 1.0 - self.rate
+        keep = torch.rand(x.shape, generator=self.rng.generator(x.device), device=x.device)
+        return torch.where(keep < keep_prob, x / keep_prob, 0.0)
 
 
 class RMSNorm(nn.Module):
@@ -71,8 +118,9 @@ class RMSNorm(nn.Module):
 
 
 class T5FFN(nn.Module):
-    def __init__(self, cfg: T5Config, device=None):
+    def __init__(self, cfg: T5Config, device=None, rng: Optional[DropoutRNG] = None):
         super().__init__()
+        self.drop = Dropout(cfg.dropout_rate, rng or DropoutRNG())
         self.gated = cfg.feed_forward_proj == "gated-gelu"
         if self.gated:
             self.wi_0 = _linear(cfg.d_model, cfg.d_ff, cfg, device)
@@ -86,7 +134,7 @@ class T5FFN(nn.Module):
             x = F.gelu(self.wi_0(x), approximate="tanh") * self.wi_1(x)
         else:
             x = F.relu(self.wi(x))
-        return self.wo(x)
+        return self.wo(self.drop(x))
 
 
 class T5Attention(nn.Module):
@@ -175,16 +223,18 @@ class RelativeBias(nn.Module):
 
 
 class T5EncoderBlock(nn.Module):
-    def __init__(self, cfg: T5Config, device=None):
+    def __init__(self, cfg: T5Config, device=None, rng: Optional[DropoutRNG] = None):
         super().__init__()
+        rng = rng or DropoutRNG()
         self.ln0 = RMSNorm(cfg.d_model, cfg.layer_norm_epsilon, cfg.dtype, device)
         self.attn = T5Attention(cfg, device)
         self.ln1 = RMSNorm(cfg.d_model, cfg.layer_norm_epsilon, cfg.dtype, device)
-        self.ffn = T5FFN(cfg, device)
+        self.ffn = T5FFN(cfg, device, rng)
+        self.drop = Dropout(cfg.dropout_rate, rng)
 
     def forward(self, x, key_mask, bias):
-        x = x + self.attn(self.ln0(x), key_mask=key_mask, bias=bias)
-        return x + self.ffn(self.ln1(x))
+        x = x + self.drop(self.attn(self.ln0(x), key_mask=key_mask, bias=bias))
+        return x + self.drop(self.ffn(self.ln1(x)))
 
 
 def _add_blocks(module: nn.Module, make, n: int):
@@ -199,11 +249,13 @@ class T5Encoder(nn.Module):
     never creates the table of a submodule that is never called, so such a
     model's parameter set has none."""
 
-    def __init__(self, cfg: T5Config, device=None, rel_bias: bool = True):
+    def __init__(self, cfg: T5Config, device=None, rel_bias: bool = True,
+                 rng: Optional[DropoutRNG] = None):
         super().__init__()
         self.cfg = cfg
+        rng = rng or DropoutRNG()
         self.rel_bias = RelativeBias(cfg, bidirectional=True, device=device) if rel_bias else None
-        self.blocks = _add_blocks(self, lambda: T5EncoderBlock(cfg, device), cfg.num_layers)
+        self.blocks = _add_blocks(self, lambda: T5EncoderBlock(cfg, device, rng), cfg.num_layers)
         self.final_ln = RMSNorm(cfg.d_model, cfg.layer_norm_epsilon, cfg.dtype, device)
 
     def forward(self, inputs_embeds, attention_mask=None, position_bias=None):
@@ -224,19 +276,22 @@ class T5Encoder(nn.Module):
 
 
 class T5DecoderBlock(nn.Module):
-    def __init__(self, cfg: T5Config, device=None):
+    def __init__(self, cfg: T5Config, device=None, rng: Optional[DropoutRNG] = None):
         super().__init__()
+        rng = rng or DropoutRNG()
         self.ln0 = RMSNorm(cfg.d_model, cfg.layer_norm_epsilon, cfg.dtype, device)
         self.self_attn = T5Attention(cfg, device)
         self.ln1 = RMSNorm(cfg.d_model, cfg.layer_norm_epsilon, cfg.dtype, device)
         self.cross_attn = T5Attention(cfg, device)
         self.ln2 = RMSNorm(cfg.d_model, cfg.layer_norm_epsilon, cfg.dtype, device)
-        self.ffn = T5FFN(cfg, device)
+        self.ffn = T5FFN(cfg, device, rng)
+        self.drop = Dropout(cfg.dropout_rate, rng)
 
     def forward(self, x, enc_out, enc_mask, self_mask, bias):
-        x = x + self.self_attn(self.ln0(x), key_mask=self_mask, bias=bias, causal=True)
-        x = x + self.cross_attn(self.ln1(x), kv_source=enc_out, key_mask=enc_mask)
-        return x + self.ffn(self.ln2(x))
+        drop = self.drop
+        x = x + drop(self.self_attn(self.ln0(x), key_mask=self_mask, bias=bias, causal=True))
+        x = x + drop(self.cross_attn(self.ln1(x), kv_source=enc_out, key_mask=enc_mask))
+        return x + drop(self.ffn(self.ln2(x)))
 
     def step(self, x, cache_k, cache_v, cross_k, cross_v, index, bias_row, enc_mask):
         x = x + self.self_attn.step(self.ln0(x), cache_k, cache_v, index, bias_row)
@@ -245,12 +300,13 @@ class T5DecoderBlock(nn.Module):
 
 
 class T5Decoder(nn.Module):
-    def __init__(self, cfg: T5Config, device=None):
+    def __init__(self, cfg: T5Config, device=None, rng: Optional[DropoutRNG] = None):
         super().__init__()
         self.cfg = cfg
+        rng = rng or DropoutRNG()
         self.rel_bias = RelativeBias(cfg, bidirectional=False, device=device)
         self.blocks = _add_blocks(
-            self, lambda: T5DecoderBlock(cfg, device), cfg.num_decoder_layers
+            self, lambda: T5DecoderBlock(cfg, device, rng), cfg.num_decoder_layers
         )
         self.final_ln = RMSNorm(cfg.d_model, cfg.layer_norm_epsilon, cfg.dtype, device)
 
@@ -295,14 +351,16 @@ class T5Decoder(nn.Module):
 
 
 class T5(nn.Module):
-    """Full encoder-decoder with shared token embedding and LM head."""
+    """Full encoder-decoder with shared token embedding and LM head. Every
+    dropout site draws from ``dropout_rng``."""
 
     def __init__(self, cfg: T5Config, device=None, encoder_rel_bias: bool = True):
         super().__init__()
         self.cfg = cfg
+        self.dropout_rng = DropoutRNG()
         self.shared = nn.Embedding(cfg.vocab_size, cfg.d_model, device=device, dtype=torch.float32)
-        self.encoder = T5Encoder(cfg, device, rel_bias=encoder_rel_bias)
-        self.decoder = T5Decoder(cfg, device)
+        self.encoder = T5Encoder(cfg, device, rel_bias=encoder_rel_bias, rng=self.dropout_rng)
+        self.decoder = T5Decoder(cfg, device, rng=self.dropout_rng)
         if not cfg.tie_word_embeddings:
             self.lm_head = _linear(cfg.d_model, cfg.vocab_size, cfg, device)
 

@@ -4,6 +4,12 @@ One attention serves every model (T5 encoder/decoder, ViT): batched
 multi-head dot-product attention over (B, H, L, D) with an optional additive
 bias (B|1, H, Lq, Lk), a boolean key mask and causal masking, f32 logits and
 softmax. Counterpart of ``phoneme_vqa_tpu/ops/attention.py``.
+
+On the card a call that needs gradients goes through
+:class:`FusedAttentionFn` (the counterpart of the JAX package's ``_flash``
+``custom_vjp``): the kernel computes the forward, and the backward
+recomputes :func:`reference_attention` under autograd. The JAX package has
+no backward kernel, so neither has the port.
 """
 
 from __future__ import annotations
@@ -52,6 +58,51 @@ def reference_attention(
     return out * (1.0 / denom).to(v.dtype)
 
 
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
+def recompute_grads(forward, inputs, needs, g):
+    """The gradients of ``forward(*inputs)`` for the inputs whose ``needs``
+    is set (None for the others), recomputed on detached copies: the
+    backward of both kernels' ``autograd.Function``s."""
+    leaves = [None if t is None else t.detach().requires_grad_(n) for t, n in zip(inputs, needs)]
+    wanted = [t for t, n in zip(leaves, needs) if n]
+    with torch.enable_grad():
+        grads = iter(torch.autograd.grad(forward(*leaves), wanted, g))
+    return [next(grads) if n else None for n in needs]
+
+
+class FusedAttentionFn(torch.autograd.Function):
+    """The attention kernel's forward, a plain recompute backward.
+
+    ``forward`` launches ``flash_attention.fused_attention`` and saves q, k,
+    v, the bias and the mask; ``backward`` recomputes
+    :func:`reference_attention` on detached copies and returns dq, dk, dv
+    and dbias (summed over the batch by autograd when the bias has batch 1)
+    and None for the mask, the causal flag and the scale. Counterpart of
+    ``phoneme_vqa_tpu/ops/attention.py: _flash`` / ``_flash_fwd`` /
+    ``_flash_bwd``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, key_mask, causal, scale):
+        from .flash_attention import fused_attention
+
+        ctx.save_for_backward(q, k, v, bias, key_mask)
+        ctx.causal, ctx.scale = causal, scale
+        return fused_attention(q, k, v, bias, key_mask, causal, scale, any_layout=True)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias, key_mask = ctx.saved_tensors
+        grads = recompute_grads(
+            lambda q_, k_, v_, b_: reference_attention(q_, k_, v_, b_, key_mask, ctx.causal,
+                                                       ctx.scale),
+            (q, k, v, bias), ctx.needs_input_grad[:4], g,
+        )
+        return (*grads, None, None, None)
+
+
 def dot_product_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -65,24 +116,30 @@ def dot_product_attention(
     Lq == Lk launches the SaL kernel; any other ``FusedSalBias`` is
     materialized first. Then a CUDA call with Lq >= 16 and a 2-D key mask (or
     none) launches the fused kernel; every other call (CPU tensors, one-token
-    decode steps) takes the plain version. The kernels read q, k and v in
-    place (the models' transposed views included); only a tensor whose layout
-    they do not take is copied (``any_layout``, ``ops.layout.kernel_operand``)."""
+    decode steps) takes the plain version. A kernel call that needs
+    gradients (grad mode on and an input that requires grad) goes through
+    the kernel's ``autograd.Function`` (:class:`FusedAttentionFn`,
+    ``sal_fused_attention.SalAttentionFn``), whose backward recomputes the
+    plain version; any other calls the kernel's wrapper directly. The
+    kernels read q, k and v in place (the models' transposed views
+    included); only a tensor whose layout they do not take is copied
+    (``any_layout``, ``ops.layout.kernel_operand``)."""
     from .sal_fused_attention import FusedSalBias
 
     if isinstance(bias, FusedSalBias):
         if q.is_cuda and not causal and scale is None and q.shape[-2] == k.shape[-2]:
-            from .sal_fused_attention import sal_fused_attention
+            from .sal_fused_attention import SalAttentionFn, sal_fused_attention
 
             mask = (
                 torch.ones(k.shape[0], k.shape[2], dtype=torch.int32, device=k.device)
                 if key_mask is None
                 else key_mask.to(torch.int32).contiguous()
             )
-            return sal_fused_attention(
-                q, k, v, bias.bias1d, bias.cell_bias.contiguous(),
-                bias.cell.to(torch.int32).contiguous(), mask, any_layout=True,
-            )
+            args = (q, k, v, bias.bias1d, bias.cell_bias.contiguous(),
+                    bias.cell.to(torch.int32).contiguous(), mask)
+            if _needs_grad(q, k, v, bias.bias1d, bias.cell_bias):
+                return SalAttentionFn.apply(*args)
+            return sal_fused_attention(*args, any_layout=True)
         bias = bias.materialize()
     use_kernel = (
         q.is_cuda
@@ -94,5 +151,7 @@ def dot_product_attention(
 
         mask = None if key_mask is None else key_mask.to(torch.int32).contiguous()
         b = None if bias is None else bias.float()
+        if _needs_grad(q, k, v, b):
+            return FusedAttentionFn.apply(q, k, v, b, mask, causal, scale)
         return fused_attention(q, k, v, b, mask, causal, scale, any_layout=True)
     return reference_attention(q, k, v, bias, key_mask, causal, scale)

@@ -20,6 +20,8 @@ it does not take; for CPU tensors it computes the plain version,
 :func:`sal_reference_attention`. q, k and v are read in place by strides
 (``ops/layout.py``) and the output is written as (B, L, H, D) storage,
 returned as its (B, H, L, D) view. ``LAUNCHES`` counts kernel launches.
+:class:`SalAttentionFn` puts the kernel under autograd with a backward that
+recomputes the plain version.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from . import _build
-from .attention import reference_attention
+from .attention import recompute_grads, reference_attention
 from .layout import empty_output, kernel_operand
 
 NAME = "sal_fused_attention"
@@ -71,6 +73,30 @@ def sal_reference_attention(q, k, v, bias1d, cell_bias, cell, key_mask) -> torch
     ``reference_attention``."""
     bias = materialize_sal_bias(bias1d, cell_bias, cell)
     return reference_attention(q, k, v, bias=bias, key_mask=key_mask)
+
+
+class SalAttentionFn(torch.autograd.Function):
+    """The SaL kernel's forward, a plain recompute backward: ``backward``
+    recomputes :func:`sal_reference_attention` (the bias materialized) on
+    detached copies and returns dq, dk, dv, dbias1d and dcell_bias, None for
+    the cells and the mask. Counterpart of
+    ``phoneme_vqa_tpu/ops/sal_fused_attention.py: sal_attention`` / ``_fwd`` /
+    ``_bwd``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias1d, cell_bias, cell, key_mask):
+        ctx.save_for_backward(q, k, v, bias1d, cell_bias, cell, key_mask)
+        return sal_fused_attention(q, k, v, bias1d, cell_bias, cell, key_mask, any_layout=True)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias1d, cell_bias, cell, key_mask = ctx.saved_tensors
+        grads = recompute_grads(
+            lambda q_, k_, v_, b_, cb_: sal_reference_attention(q_, k_, v_, b_, cb_, cell,
+                                                                key_mask),
+            (q, k, v, bias1d, cell_bias), ctx.needs_input_grad[:5], g,
+        )
+        return (*grads, None, None)
 
 
 def _load():

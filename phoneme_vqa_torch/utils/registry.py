@@ -1,7 +1,7 @@
 """String-keyed registries.
 
-Config values such as ``MODEL_CLASS: "LaTr"`` or
-``MODEL_MOD_CONFIG_CLASS: "LaTr_config"`` resolve to classes through these
+Config values such as ``EXECUTOR: "LaTr_Executor"``, ``MODEL_CLASS: "LaTr"``
+or ``MODEL_MOD_CONFIG_CLASS: "LaTr_config"`` resolve to classes through these
 dict-based registries, as they do in ``phoneme_vqa_tpu.utils.registry``.
 The port keeps its own instances: ``register`` raises when a name is
 already bound to a different class.
@@ -39,5 +39,6 @@ class Registry:
             ) from None
 
 
+EXECUTORS = Registry("executor")
 MODELS = Registry("model")
 MODEL_CONFIGS = Registry("model_config")

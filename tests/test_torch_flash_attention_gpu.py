@@ -110,6 +110,39 @@ def test_dispatch_launches_kernel_only_from_sixteen_rows(cuda):
     assert fa.LAUNCHES == before + 1
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lq,lk,causal", [(37, 37, True), (127, 127, True), (20, 327, False)])
+def test_dispatch_under_grad_launches_the_function_with_a_recompute_backward(cuda, dtype, lq, lk,
+                                                                             causal):
+    """With grad on, the dispatch runs the kernel's forward inside
+    ``FusedAttentionFn``; every input that requires grad gets the gradient
+    the plain path gives (the backward is that recompute), the bias's
+    summed over the batch."""
+    q, k, v, bias, mask = _inputs(2, 3, lq, lk, 64, dtype, cuda, seed=3)
+    mask[-1] = 1
+    leaves = [t.detach().requires_grad_() for t in _as_model_views(q, k, v)]
+    bias1 = bias[:1].detach().clone().requires_grad_()
+    w = torch.randn(2, 3, lq, 64, device=cuda)
+
+    def grads(attention):
+        out = attention(*leaves, bias1, mask.bool(), causal)
+        return out, torch.autograd.grad((out.float() * w).sum(), [*leaves, bias1])
+
+    before = fa.LAUNCHES
+    got_out, got = grads(lambda q_, k_, v_, b_, m_, c_: dot_product_attention(
+        q_, k_, v_, b_, m_, c_))
+    assert fa.LAUNCHES == before + 1 and type(got_out.grad_fn).__name__ == "FusedAttentionFnBackward"
+    want_out, want = grads(lambda q_, k_, v_, b_, m_, c_: reference_attention(
+        q_, k_, v_, b_, m_, c_))
+    torch.testing.assert_close(got_out.float(), want_out.float(), atol=TOL[dtype], rtol=TOL[dtype])
+    for g, ref in zip(got, want):
+        assert g is not None and g.abs().max() > 0
+        torch.testing.assert_close(g, ref, atol=0, rtol=0)
+    with torch.no_grad():  # serving: the wrapper, no Function
+        assert dot_product_attention(*leaves, bias1, mask.bool(), causal).grad_fn is None
+    assert fa.LAUNCHES == before + 2
+
+
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     q, k, v, bias, mask = _inputs(1, 2, 32, 32, 64, torch.float32, cuda)
     with pytest.raises(ValueError):

@@ -135,6 +135,7 @@ def test_relu_ffn_matches_flax():
     t_ffn = t_t5.T5FFN(t_t5.T5Config(d_model=16, d_ff=24, feed_forward_proj="relu",
                                      dtype=torch.float32))
     bridge.load_flax_params(t_ffn, sub)
+    t_ffn.eval()  # flax's apply is deterministic: no dropout
     with torch.no_grad():
         got = t_ffn(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got, np.asarray(j_ffn.apply({"params": sub}, x)), atol=ATOL,

@@ -121,6 +121,29 @@ def test_dispatch_launches_the_sal_kernel_for_a_fused_bias(cuda):
     assert (sfa.LAUNCHES, fa.LAUNCHES) == (before[0] + 2, before[1] + 1)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dispatch_under_grad_runs_the_sal_function_with_a_recompute_backward(cuda, dtype):
+    """With grad on, a fused bias goes through ``SalAttentionFn``: one
+    kernel launch, and dq, dk, dv, dbias1d and dcell_bias equal to the
+    plain path's (the backward is that recompute)."""
+    q, k, v, bias1d, cb, cell, mask = _inputs(2, 3, 131, 64, dtype, dtype, cuda, seed=4)
+    mask[-1] = 1
+    leaves = [t.detach().requires_grad_() for t in (q, k, v, bias1d, cb)]
+    w = torch.randn(2, 3, 131, 64, device=cuda)
+    before = sfa.LAUNCHES
+    out = dot_product_attention(*leaves[:3], sfa.FusedSalBias(leaves[3], leaves[4], cell),
+                                key_mask=mask.bool())
+    assert sfa.LAUNCHES == before + 1
+    assert type(out.grad_fn).__name__ == "SalAttentionFnBackward"
+    got = torch.autograd.grad((out.float() * w).sum(), leaves)
+    want_out = sfa.sal_reference_attention(*leaves, cell, mask)
+    want = torch.autograd.grad((want_out.float() * w).sum(), leaves)
+    torch.testing.assert_close(out.float(), want_out.float(), atol=TOL[dtype], rtol=TOL[dtype])
+    for g, ref in zip(got, want):
+        assert g.abs().max() > 0
+        torch.testing.assert_close(g, ref, atol=0, rtol=0)
+
+
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     q, k, v, bias1d, cb, cell, mask = _inputs(1, 2, 32, 64, torch.float32, torch.float32, cuda)
     run = lambda **kw: sfa.sal_fused_attention(
