@@ -17,28 +17,43 @@ Phases (any failure exits non-zero; nothing is caught and carried past):
     plain recompute backward) against the plain path's: over the phase-3
     option grid, at the four attention roles of a LaTr-base train step (ViT,
     T5 encoder, decoder self-attention 127 x 127 causal + bias + mask,
-    cross-attention 127 x 327 + mask; B=16) in bf16 and f32, and the SaL
-    Function at the SaL serving shape; every input that requires grad gets
-    a finite, nonzero gradient
+    cross-attention 127 x 327 + mask; B=16) and the three attention-kernel
+    roles of a PhonemeSaL-base train step (custom decoder self-attention
+    39 x 39 causal + scale + mask, cross-attention 39 x 336 + scale + mask,
+    the SaL encoder with SAL_FUSED off: the materialized (16, 12, 336, 336)
+    f32 bias + mask) in bf16 and f32, and the SaL Function at the SaL
+    serving shape and at its training shape (B=16) in both types; every
+    input that requires grad gets a finite, nonzero gradient
 4.  full-width LaTr-base (seeded random weights) answers synthetic requests
     through ServingEngine at batch 32 in bf16; the attention kernel must
     launch 24 times per batch (12 ViT + 12 T5 encoder layers), the SaL one 0
 4b. full-width SaL-base (seeded random weights) answers synthetic requests
     the same way; the SaL kernel must launch 12 times per batch (every
     encoder layer), the attention kernel 0
+4c. full-width PhonemeSaL-base (configs/phonemesal.yaml: the SaL-base
+    encoder, a 4-layer custom decoder over the 253-id flat phoneme
+    vocabulary) answers synthetic requests at batch 32, 40 answer tokens,
+    decoded by the phoneme tokenizer; 12 SaL-kernel launches per batch, 0
+    attention-kernel launches (the decode steps have one query row)
 5.  LaTr in f32 on one batch: teacher-forced logits and greedy tokens
     through the kernels against the same model with plain attention
 5b. the same for SaL; its plain attention materializes the 2D bias
+5c. the same for PhonemeSaL (answer vocabulary, 40 tokens)
 6.  attention kernel, plain and library (SDPA) times at the LaTr serving
     shapes, CUDA events
-6b. SaL kernel, plain and library times at the SaL serving shape
+6b. SaL kernel, plain and library times at the SaL serving shape; the
+    SAL_FUSED choice per SaL-base batch: 12 SaL-kernel launches against one
+    bias materialization + 12 attention-kernel launches on it (interleaved
+    on, off, off, on), printed beside the port's default
 6c. ablations: the kernels at the serving shapes with part of their work
     taken away (the T5 encoder without its bias, its mask or both, with
     contiguous q, k, v; the SaL shape with f32 tables, and through the
     attention kernel with its key mask only, i.e. without the SaL policy)
 6d. attention kernel, plain and library times at the four roles of a
     LaTr-base train step (B=16), and the plain backward recompute of the
-    three roles that carry gradients
+    three roles that carry gradients; the same at the three attention-kernel
+    roles of a PhonemeSaL-base train step and for the SaL kernel at its
+    training shape (B=16)
 7.  full-width LaTr-base (bf16 compute, f32 masters, dropout 0.1, the LaTr
     preset's adam at LR 5e-5, batch 16, decoder length 127) trains one epoch
     of 20 steps through LaTrExecutor on a synthetic fixture, evaluates,
@@ -50,6 +65,17 @@ Phases (any failure exits non-zero; nothing is caught and carried past):
 7b. one f32 train step at full width (batch 4): loss, every gradient and the
     parameters after the step through the kernels against the same model
     with plain attention
+8.  full-width PhonemeSaL-base (bf16 compute, f32 masters, dropout 0.1, the
+    preset's adam at LR 5e-5 with its LinearLR warmup, batch 16, answers of
+    40 phoneme ids) trains one epoch of 20 steps through PhonemeSaLExecutor
+    on a synthetic SaL fixture with Vietnamese answers, evaluates, saves
+    last/best, restores, and predicts; 12 SaL-kernel + 8 attention-kernel
+    launches per train step, 12 SaL per eval or predict batch; a repeated
+    batch's loss falls; ms per step, the split, busy share, peak memory;
+    then 5 steps with SAL_FUSED off (0 SaL + 20 attention launches a step)
+8b. one f32 PhonemeSaL train step (batch 4) kernels vs plain, as 7b
+8c. 3 train steps of the stock SaLExecutor (configs/sal.yaml widths, batch
+    16, answers of 40): 12 SaL + 24 attention launches a step
 
 Prints a {"kernels": [...]} line, the card line, and last
 {"ok": true, "device": {...}}. Needs the repo's phoneme_vqa_torch package;
@@ -62,6 +88,7 @@ import itertools
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -79,7 +106,10 @@ from phoneme_vqa_torch.data.adapters import textlayout_obj_adapt  # noqa: E402
 from phoneme_vqa_torch.data.adapters import textlayout_ocr_adapt  # noqa: E402
 from phoneme_vqa_torch.data.loader import batch_iterator  # noqa: E402
 from phoneme_vqa_torch.decode.greedy import greedy_decode  # noqa: E402
+from phoneme_vqa_torch.models import custom_decoder as custom_decoder_mod  # noqa: E402
+from phoneme_vqa_torch.models import customized as customized_mod  # noqa: E402
 from phoneme_vqa_torch.models import latr as latr_mod  # noqa: E402
+from phoneme_vqa_torch.models import phoneme as phoneme_mod  # noqa: E402
 from phoneme_vqa_torch.models import sal as sal_mod  # noqa: E402
 from phoneme_vqa_torch.models import t5 as t5_mod  # noqa: E402
 from phoneme_vqa_torch.models import vit as vit_mod  # noqa: E402
@@ -89,8 +119,10 @@ from phoneme_vqa_torch.ops import flash_attention as fa  # noqa: E402
 from phoneme_vqa_torch.ops import layout  # noqa: E402
 from phoneme_vqa_torch.ops import sal_fused_attention as sfa  # noqa: E402
 from phoneme_vqa_torch.serving import SaLInputs, ServingEngine, featurize_requests  # noqa: E402
+from phoneme_vqa_torch.models.generate import decode_token_ids  # noqa: E402
+from phoneme_vqa_torch.tokenizers import PhonemeTokenizer  # noqa: E402
 from phoneme_vqa_torch.tokenizers.backbone import FallbackSubwordTokenizer  # noqa: E402
-from phoneme_vqa_torch.train import LaTrExecutor  # noqa: E402
+from phoneme_vqa_torch.train import LaTrExecutor, PhonemeSaLExecutor, SaLExecutor  # noqa: E402
 from phoneme_vqa_torch.train import state as train_state  # noqa: E402
 
 DEVICE = torch.device("cuda")
@@ -116,6 +148,13 @@ OCR_ELEMENTS, OCR_LEN, Q_LEN = 50, 100, 30
 SAL_FULL = dict(T5_BASE, ocr_hidden=512, obj_hidden=2048, max_q_length=80, max_ocr_length=128)
 SAL_OCR_ELEMENTS, SAL_OBJ_ELEMENTS, SAL_OBJ_LEN = 32, 32, 128
 SAL_L = SAL_FULL["max_q_length"] + SAL_FULL["max_ocr_length"] + SAL_OBJ_LEN
+# PhonemeSaL-base (configs/phonemesal.yaml): the SaL-base encoder and a
+# 4-layer custom decoder (12 heads, d_ff 2048) over the flat phoneme
+# vocabulary (253 ids); answers of 40 ids, so the decoder reads 39 positions
+# in training
+PSAL_FULL = dict(SAL_FULL, n_head=12, num_decoder_layers=4)
+PSAL_ANSWER = 40
+PSAL_DEC_L = PSAL_ANSWER - 1
 # f32: the kernels sum q·k and P·v in another order than cuBLAS; rounding is
 # ~1e-6 relative and the softmax's exp scales it by the logit size. bf16: a
 # kernel's output is rounded to bf16 (2^-8 relative); the plain result is f32
@@ -349,12 +388,11 @@ def check_sal_kernel_grid() -> dict:
     return worst
 
 
-def sal_serving_shape():
-    """The SaL encoder self-attention at B=32, H=12, L=336, D=64, bf16 with
-    bf16 tables, q, k, v in the models' layout: sentinel cells outside the
-    OCR block, a key mask."""
-    q, k, v, bias1d, cb, cell, mask = _sal_inputs(BATCH, 12, SAL_L, 64, torch.bfloat16,
-                                                  torch.bfloat16, seed=5)
+def sal_serving_shape(batch=BATCH, dtype=torch.bfloat16, seed=5):
+    """The SaL encoder self-attention at B=32 (or ``batch``), H=12, L=336,
+    D=64, bf16 (or ``dtype``) with tables in the same type, q, k, v in the
+    models' layout: sentinel cells outside the OCR block, a key mask."""
+    q, k, v, bias1d, cb, cell, mask = _sal_inputs(batch, 12, SAL_L, 64, dtype, dtype, seed=seed)
     q, k, v = model_layout(q, k, v)
     ocr = slice(SAL_FULL["max_q_length"], SAL_FULL["max_q_length"] + SAL_FULL["max_ocr_length"])
     g = torch.Generator(device=DEVICE).manual_seed(6)
@@ -399,6 +437,28 @@ def training_shapes(dtype, batch=TRAIN_BATCH):
     _, k, v, _, _ = _attn_inputs(batch, 12, 1, ENC_L, 64, dtype, seed=27)
     cross = ("t5_cross", *model_layout(q, k, v), None, mask, False, None)
     return [vit, enc, dec, cross]
+
+
+def phoneme_training_shapes(dtype, batch=TRAIN_BATCH):
+    """(role, q, k, v, bias, mask, causal, scale) for the attention-kernel
+    roles of a PhonemeSaL-base train step, q, k, v in the models' layout: the
+    custom decoder's self-attention (39 x 39, causal, scale 1/8, the
+    answers' key mask) and cross-attention (39 x 336, scale 1/8, the encoder
+    mask), and the SaL encoder with SAL_FUSED off (the materialized (B, 12,
+    336, 336) f32 bias, key mask)."""
+    scale = 64**-0.5
+    q, k, v, _, _ = _attn_inputs(batch, 12, PSAL_DEC_L, PSAL_DEC_L, 64, dtype, seed=30)
+    lens = torch.randint(2, PSAL_DEC_L, (batch,), generator=torch.Generator().manual_seed(31))
+    dec_mask = (torch.arange(PSAL_DEC_L)[None] < lens[:, None]).to(torch.int32).to(DEVICE)
+    dec = ("custom_decoder_self", *model_layout(q, k, v), None, dec_mask, True, scale)
+    q, _, _, _, _ = _attn_inputs(batch, 12, PSAL_DEC_L, 1, 64, dtype, seed=32)
+    _, k, v, _, mask = _attn_inputs(batch, 12, 1, SAL_L, 64, dtype, seed=33)
+    mask[-1] = 1
+    cross = ("custom_decoder_cross", *model_layout(q, k, v), None, mask, False, scale)
+    q, k, v, bias1d, cb, cell, mask = sal_serving_shape(batch, dtype, seed=34)
+    enc = ("sal_encoder_materialized", q, k, v, sfa.materialize_sal_bias(bias1d, cb, cell), mask,
+           False, None)
+    return [dec, cross, enc]
 
 
 def _grads(fn, tensors, w):
@@ -457,7 +517,8 @@ def check_kernel_grads() -> dict:
             n += 1
     roles = {}
     for dtype in worst:
-        for role, q, k, v, bias, mask, causal, scale in training_shapes(dtype):
+        for role, q, k, v, bias, mask, causal, scale in (training_shapes(dtype)
+                                                         + phoneme_training_shapes(dtype)):
             err = _check_grads(
                 lambda q_, k_, v_, b_: fn(q_, k_, v_, b_, mask, causal, scale),
                 lambda q_, k_, v_, b_: attn_mod.reference_attention(q_, k_, v_, b_, mask, causal,
@@ -472,14 +533,23 @@ def check_kernel_grads() -> dict:
         lambda *a: sfa.SalAttentionFn.apply(*a, cell, mask),
         lambda *a: sfa.sal_reference_attention(*a, cell, mask),
         (q, k, v, bias1d, cb), TOL[torch.bfloat16], "SaL serving shape")
-    check_launches("phase 3c", launches(), {"flash_attention": n, "sal_fused_attention": 1})
+    sal_train = {}
+    for dtype in worst:  # the SaL encoder of a SaL-family train step (SAL_FUSED on)
+        q, k, v, bias1d, cb, cell, mask = sal_serving_shape(TRAIN_BATCH, dtype, seed=35)
+        sal_train[str(dtype).replace("torch.", "")] = _check_grads(
+            lambda *a: sfa.SalAttentionFn.apply(*a, cell, mask),
+            lambda *a: sfa.sal_reference_attention(*a, cell, mask),
+            (q, k, v, bias1d, cb), TOL[dtype], f"SaL training shape {dtype}")
+    check_launches("phase 3c", launches(), {"flash_attention": n, "sal_fused_attention": 3})
     log(f"phase 3c: gradients through FusedAttentionFn == plain over {n} cases (the phase-3 "
-        f"grid and the four training roles at B={TRAIN_BATCH}); max |grad err| f32 "
-        f"{worst[torch.float32]:.3e}, bf16 {worst[torch.bfloat16]:.3e} (tol {TOL}); by role "
-        f"{json.dumps(roles)}; SalAttentionFn at the SaL serving shape {sal_err:.3e}; one "
-        f"kernel launch per forward, none in a backward")
+        f"grid, the four LaTr-base and three PhonemeSaL-base training roles at "
+        f"B={TRAIN_BATCH}); max |grad err| f32 {worst[torch.float32]:.3e}, bf16 "
+        f"{worst[torch.bfloat16]:.3e} (tol {TOL}); by role {json.dumps(roles)}; SalAttentionFn "
+        f"at the SaL serving shape {sal_err:.3e}, at the training shape (B={TRAIN_BATCH}) "
+        f"{json.dumps(sal_train)}; one kernel launch per forward, none in a backward")
     return {"max_grad_err_f32": worst[torch.float32], "max_grad_err_bf16": worst[torch.bfloat16],
-            "train_roles": roles, "sal_max_grad_err": sal_err, "cases": n + 1}
+            "train_roles": roles, "sal_max_grad_err": max(sal_err, *sal_train.values()),
+            "sal_train_grad_err": sal_train, "cases": n + 3}
 
 
 # -- phases 4 and 4b ----------------------------------------------------------
@@ -503,7 +573,7 @@ def sal_fixture(root):
                                       region_hidden=SAL_FULL["obj_hidden"])
 
 
-def sal_engine(model, tokenizer, paths):
+def sal_engine(model, tokenizer, paths, **kw):
     # the SaL executor adapts both feature stores with scale 1 (boxes in [0, 1])
     sal = SaLInputs(
         textlayout_obj_adapt(paths["obj_features"], 1, 1), paths["ocr_features"],
@@ -513,10 +583,26 @@ def sal_engine(model, tokenizer, paths):
     )
     return ServingEngine(
         model, tokenizer, textlayout_ocr_adapt(paths["ocr_features"], 1, 1), None,
-        batch_size=BATCH, max_answer_length=MAX_ANSWER, max_ocr_element=SAL_OCR_ELEMENTS,
-        max_ocr_length=SAL_FULL["max_ocr_length"], max_q_length=SAL_FULL["max_q_length"],
-        sal=sal,
+        batch_size=BATCH, max_answer_length=kw.pop("max_answer_length", MAX_ANSWER),
+        max_ocr_element=SAL_OCR_ELEMENTS, max_ocr_length=SAL_FULL["max_ocr_length"],
+        max_q_length=SAL_FULL["max_q_length"], sal=sal, **kw,
     )
+
+
+def phoneme_engine(model, tokenizer, paths):
+    """PhonemeSaL serving: answers of 40 ids decoded by the phoneme tokenizer."""
+    return sal_engine(model, tokenizer, paths, max_answer_length=PSAL_ANSWER,
+                      answer_tokenizer=PhonemeTokenizer())
+
+
+def build_phoneme_sal(dtype):
+    """Full-width PhonemeSaL-base with seeded random weights; the decoder's
+    vocabulary and ids are the phoneme tokenizer's."""
+    tok = PhonemeTokenizer()
+    config = dict(PSAL_FULL, DTYPE=dtype)
+    cfg = customized_mod.CustomizedSaL_config().build(config, len(tok), tok.pad_id, tok.bos_id,
+                                                      tok.eos_id)
+    return sal_mod.build_sal(config, DEVICE, SEED, phoneme_mod.PhonemeSaL, cfg)
 
 
 def requests():
@@ -534,8 +620,10 @@ def first_batch(engine, reqs):
 
 def serve(phase, title, engine, reqs, per_batch: dict) -> dict:
     """``engine`` answers ``reqs``; ``per_batch`` is each kernel's launches
-    per batch."""
+    per batch. An engine with an answer tokenizer (the phoneme decoder) must
+    answer recomposed words, never phoneme or tone tokens."""
     model = engine.model
+    max_answer = engine.max_answer_length
     engine.answer(reqs[:BATCH])  # warm-up: cuBLAS handles, allocator pools
     torch.cuda.synchronize()
 
@@ -549,6 +637,8 @@ def serve(phase, title, engine, reqs, per_batch: dict) -> dict:
     n_batches = -(-len(reqs) // BATCH)
     if len(answers) != len(reqs) or not all(isinstance(a, str) for a in answers):
         raise AssertionError(f"{phase}: {len(answers)} answers for {len(reqs)} requests")
+    if engine.answer_tokenizer is not None and any("<" in a for a in answers):
+        raise AssertionError(f"{phase}: special tokens in the decoded answers {answers[:4]}")
     check_launches(phase, got, {k: n * n_batches for k, n in per_batch.items()})
     ms_per_batch = 1e3 * wall / n_batches
 
@@ -559,14 +649,14 @@ def serve(phase, title, engine, reqs, per_batch: dict) -> dict:
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     with torch.inference_mode():
-        model.encode_for_generate(tb, MAX_ANSWER)
+        model.encode_for_generate(tb, max_answer)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     out = engine.generate(tb)
     torch.cuda.synchronize()
     t3 = time.perf_counter()
-    eos = model.cfg.t5.eos_token_id
-    steps = max(row.index(eos) if eos in row else MAX_ANSWER - 1 for row in out.tolist())
+    eos = decode_token_ids(model)[1]
+    steps = max(row.index(eos) if eos in row else max_answer - 1 for row in out.tolist())
     split = {
         "featurize_ms": 1e3 * (t1 - t0), "encode_ms": 1e3 * (t2 - t1),
         "generate_ms": 1e3 * (t3 - t2), "decode_ms": 1e3 * ((t3 - t2) - (t2 - t1)),
@@ -623,8 +713,8 @@ def plain_attention(q, k, v, bias=None, key_mask=None, causal=False, scale=None)
     return attn_mod.reference_attention(q, k, v, bias, key_mask, causal, scale)
 
 
-def _greedy_with_logits(model, tb):
-    cache, full_bias, enc_mask = model.encode_for_generate(tb, MAX_ANSWER)
+def _greedy_with_logits(model, tb, max_answer):
+    cache, full_bias, enc_mask = model.encode_for_generate(tb, max_answer)
     seen = []
 
     def step(tokens, cache, i):
@@ -632,37 +722,56 @@ def _greedy_with_logits(model, tb):
         seen.append(logits)
         return logits, cache
 
-    out = greedy_decode(step, cache, enc_mask.shape[0], MAX_ANSWER, 0, 1, 0, DEVICE)
+    out = greedy_decode(step, cache, enc_mask.shape[0], max_answer, *decode_token_ids(model),
+                        DEVICE)
     return out, seen
 
 
-def check_end_to_end_f32(phase, model, tb, want_launches: dict) -> dict:
+ATTENTION_USERS = (t5_mod, vit_mod, custom_decoder_mod)  # modules that call the dispatch
+
+
+class attention_replaced:
+    """Within the block, every model's attention is ``attention`` (the plain
+    path or the noisy yardstick) in place of the kernel dispatch."""
+
+    def __init__(self, attention):
+        self.attention = attention
+
+    def __enter__(self):
+        self.saved = [m.dot_product_attention for m in ATTENTION_USERS]
+        for m in ATTENTION_USERS:
+            m.dot_product_attention = self.attention
+
+    def __exit__(self, *exc):
+        for m, fn in zip(ATTENTION_USERS, self.saved):
+            m.dot_product_attention = fn
+
+
+def check_end_to_end_f32(phase, model, tb, want_launches: dict,
+                         vocab=T5_BASE["t5_vocab_size"], max_answer=MAX_ANSWER) -> dict:
     """Teacher-forced logits and greedy tokens through the kernels against
-    the same model with ``plain_attention``."""
+    the same model with ``plain_attention``; labels from the decoder's
+    ``vocab``, ``max_answer`` long."""
     g = np.random.RandomState(SEED)
-    labels = torch.from_numpy(g.randint(3, T5_BASE["t5_vocab_size"], (BATCH, MAX_ANSWER)))
+    labels = torch.from_numpy(g.randint(3, vocab, (BATCH, max_answer)))
     labels = labels.to(DEVICE)
     label_mask = torch.ones_like(labels, dtype=torch.int32)
-    label_mask[: BATCH // 2, MAX_ANSWER // 2 :] = 0
+    label_mask[: BATCH // 2, max_answer // 2 :] = 0
 
     def run():
         with torch.inference_mode():
             logits = model(tb, labels, label_mask)
-            out, seen = _greedy_with_logits(model, tb)
+            out, seen = _greedy_with_logits(model, tb, max_answer)
         torch.cuda.synchronize()
         return logits, out, seen
 
     reset_launches()
     k_logits, k_out, _ = run()
     check_launches(phase, launches(), want_launches)
-    saved = (t5_mod.dot_product_attention, vit_mod.dot_product_attention)
-    t5_mod.dot_product_attention = vit_mod.dot_product_attention = plain_attention
-    try:
+    with attention_replaced(plain_attention):
         reset_launches()
         p_logits, p_out, p_seen = run()
         check_launches(phase, launches(), {name: 0 for name in KERNELS})
-    finally:
-        t5_mod.dot_product_attention, vit_mod.dot_product_attention = saved
     if not torch.isfinite(k_logits).all():
         raise AssertionError(f"{phase}: non-finite logits")
     logits_err = float((k_logits - p_logits).abs().max())
@@ -691,9 +800,10 @@ def check_end_to_end_f32(phase, model, tb, want_launches: dict) -> dict:
 
 
 def run_family(phase, title, build, fixture, make_engine, tokenizer, per_batch, e2e_launches,
-               root):
+               root, **e2e_kw):
     """Serve at bf16 (phase ``phase``), then check f32 end to end (the next
-    phase) on the first serving batch."""
+    phase) on the first serving batch (``e2e_kw``: the decoder's vocabulary
+    and answer length)."""
     reqs = requests()
     paths = fixture(root)
     engine = make_engine(build(dtype="bfloat16"), tokenizer, paths)
@@ -703,7 +813,7 @@ def run_family(phase, title, build, fixture, make_engine, tokenizer, per_batch, 
     model = build(dtype="float32")
     engine = make_engine(model, tokenizer, paths)
     e2e = check_end_to_end_f32(f"phase {phase.replace('4', '5')}", model,
-                               first_batch(engine, reqs), e2e_launches)
+                               first_batch(engine, reqs), e2e_launches, **e2e_kw)
     del model, engine
     torch.cuda.empty_cache()
     return served, e2e
@@ -822,6 +932,40 @@ def time_sal_kernel() -> dict:
     return row
 
 
+def time_sal_fused_choice() -> dict:
+    """The SAL_FUSED choice per SaL-base serving batch (B=32, bf16): on, the
+    12 encoder layers' SaL-kernel launches; off, one materialization of the
+    (B, 12, 336, 336) f32 bias and 12 attention-kernel launches on it. By
+    CUDA events, interleaved on, off, off, on; the device ms by the
+    profiler. Prints the faster beside the port's default
+    (``ops.attention.SAL_FUSED_ENABLED``)."""
+    q, k, v, bias1d, cb, cell, mask = sal_serving_shape()
+    n = T5_BASE["num_encoder_layers"]
+
+    def on():
+        for _ in range(n):
+            sfa.sal_fused_attention(q, k, v, bias1d, cb, cell, mask)
+
+    def off():
+        bias = sfa.materialize_sal_bias(bias1d, cb, cell)
+        for _ in range(n):
+            fa.fused_attention(q, k, v, bias, mask, False, None)
+
+    runs = [_time("ms", fn, iters=5)["ms"] for fn in (on, off, off, on)]
+    row = {"on_ms_per_batch": (runs[0] + runs[3]) / 2, "off_ms_per_batch": (runs[1] + runs[2]) / 2,
+           "on_off_off_on_ms": runs, **_split_time("on_", on, iters=5),
+           **_split_time("off_", off, iters=5),
+           **_time("materialize_ms", lambda: sfa.materialize_sal_bias(bias1d, cb, cell))}
+    row["faster"] = "on" if row["on_ms_per_batch"] <= row["off_ms_per_batch"] else "off"
+    row["default"] = "on" if attn_mod.SAL_FUSED_ENABLED else "off"
+    log(f"phase 6b: SAL_FUSED per SaL-base batch: on {row['on_ms_per_batch']:.4f} ms "
+        f"(device {row['on_device_ms']:.4f}), off {row['off_ms_per_batch']:.4f} ms (device "
+        f"{row['off_device_ms']:.4f}, of it the materialization {row['materialize_ms']:.4f} ms "
+        f"by events); faster: {row['faster']}; the port's default: {row['default']}; "
+        f"{json.dumps(row)}")
+    return row
+
+
 def time_ablations() -> dict:
     """Event and device ms per call of the kernels at the serving shapes
     with part of their work taken away, each beside the full call in
@@ -851,14 +995,15 @@ def time_ablations() -> dict:
     return rows
 
 
-def time_train_shapes() -> list:
-    """Phase 6d: kernel, plain and SDPA ms per call at the four attention
-    roles of a LaTr-base train step (B=16, bf16), each with its bound; and
-    for the three roles that carry gradients, the plain backward recompute
-    (``reference_attention`` forward + autograd backward, what
-    ``FusedAttentionFn.backward`` runs) per call."""
+def time_train_shapes(shapes) -> list:
+    """Phase 6d: kernel, plain and SDPA ms per call at the attention roles
+    of a train step (``training_shapes`` or ``phoneme_training_shapes``,
+    B=16, bf16), each with its bound; and for the roles that carry
+    gradients, the plain backward recompute (``reference_attention`` forward
+    + autograd backward, what ``FusedAttentionFn.backward`` runs) per
+    call."""
     rows = []
-    for role, q, k, v, bias, mask, causal, scale in training_shapes(torch.bfloat16):
+    for role, q, k, v, bias, mask, causal, scale in shapes:
         kernel = lambda: fa.fused_attention(q, k, v, bias, mask, causal, scale)
         plain = lambda: attn_mod.reference_attention(q, k, v, bias, mask, causal, scale)
         library = _sdpa(q, k, v, bias, mask, scale, causal)
@@ -887,6 +1032,42 @@ def time_train_shapes() -> list:
         rows.append(row)
         log(f"phase 6d: {json.dumps(row)}")
     return rows
+
+
+def _recompute_backward(fn, tensors, g):
+    """One plain forward of ``fn`` on fresh leaves and its autograd
+    backward: what the kernels' autograd.Functions run in a backward."""
+    leaves = [t.detach().requires_grad_() for t in tensors]
+
+    def run():
+        torch.autograd.grad(fn(*leaves), leaves, g)
+
+    return run
+
+
+def time_sal_train_shape() -> dict:
+    """Phase 6d: the SaL kernel at the SaL encoder of a SaL-family train
+    step (B=16, bf16, bf16 tables): kernel, plain, SDPA on the pre-built
+    bias, its bound, and the plain recompute backward (what
+    ``SalAttentionFn.backward`` runs) per call."""
+    q, k, v, bias1d, cb, cell, mask = sal_serving_shape(TRAIN_BATCH, seed=36)
+    kernel = lambda: sfa.sal_fused_attention(q, k, v, bias1d, cb, cell, mask)
+    plain = lambda: sfa.sal_reference_attention(q, k, v, bias1d, cb, cell, mask)
+    library = _sdpa(q, k, v, sfa.materialize_sal_bias(bias1d, cb, cell), mask, None)
+    moved, flops = _qkvo_bytes_flops(q, k)
+    moved += sum(t.numel() * t.element_size() for t in (bias1d, cb, cell, mask))
+    bound_ms, bound_by = _bound(moved, flops)
+    g = torch.randn(q.shape, device=DEVICE).to(q.dtype)
+    recompute = _recompute_backward(
+        lambda *a: sfa.sal_reference_attention(*a, cell, mask), (q, k, v, bias1d, cb), g)
+    row = {"shape": "sal_encoder_train", "q": list(q.shape), "dtype": "bfloat16",
+           "tables": "bfloat16", **_time("ms", kernel), **_time("plain_ms", plain),
+           **_time("library_ms", library), **_split_time("", kernel),
+           **_split_time("library_", library), "library_excludes": "bias materialization",
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           **_time("recompute_backward_ms", recompute, iters=10, repeats=3)}
+    log(f"phase 6d: {json.dumps(row)}")
+    return row
 
 
 # -- phases 7 and 7b ----------------------------------------------------------
@@ -1129,25 +1310,20 @@ def noisy_attention(generator):
     return attention
 
 
-def check_train_f32(paths) -> dict:
-    """Phase 7b: one f32 train step at full width, batch 4, through the
-    kernels, then from the same state with ``plain_attention``, then with
-    ``noisy_attention`` (the yardstick)."""
-    config = latr_train_config(paths, os.path.join(paths["root"], "f32"), DTYPE="float32",
-                               TRAIN_BATCH_SIZE=4, SAVE=False)
-    ex = LaTrExecutor(config, "train", device=DEVICE)
+def check_train_f32(phase, ex, per_step: dict) -> dict:
+    """Phases 7b and 8b: one f32 train step of ``ex`` (an executor at full
+    width, batch 4) through the kernels (``per_step`` launches), then from
+    the same state with ``plain_attention``, then with ``noisy_attention``
+    (the yardstick)."""
     start = {n: p.detach().clone() for n, p in ex.state.params.items()}
     batch, _ = next(batch_iterator(ex.train_data, 4))
     lr = ex._lr_schedule(0)
 
     def one_step(attention=None):
-        saved = (t5_mod.dot_product_attention, vit_mod.dot_product_attention)
-        if attention is not None:
-            t5_mod.dot_product_attention = vit_mod.dot_product_attention = attention
-        try:
+        if attention is None:
             return _one_step()
-        finally:
-            t5_mod.dot_product_attention, vit_mod.dot_product_attention = saved
+        with attention_replaced(attention):
+            return _one_step()
 
     def _one_step():
         ex.load_params(start)
@@ -1163,18 +1339,15 @@ def check_train_f32(paths) -> dict:
 
     reset_launches()
     k_loss, k_grads, k_params = one_step()
-    per_step = FULL["vit_num_layers"] + T5_BASE["num_encoder_layers"] + \
-        2 * T5_BASE["num_t5_decoder_layers"]
-    check_launches("phase 7b", launches(), {"flash_attention": per_step,
-                                            "sal_fused_attention": 0})
+    check_launches(phase, launches(), per_step)
     reset_launches()
     p_loss, p_grads, p_params = one_step(plain_attention)
     n_loss, n_grads, n_params = one_step(
         noisy_attention(torch.Generator(device=DEVICE).manual_seed(SEED)))
-    check_launches("phase 7b", launches(), {name: 0 for name in KERNELS})
+    check_launches(phase, launches(), {name: 0 for name in KERNELS})
     loss_err = abs(k_loss - p_loss) / abs(p_loss)
     if not loss_err <= LOSS_RTOL:
-        raise AssertionError(f"phase 7b: loss {k_loss} vs plain {p_loss}")
+        raise AssertionError(f"{phase}: loss {k_loss} vs plain {p_loss}")
 
     def gap(grads):
         return {n: float((grads[n] - g).norm() / g.norm()) for n, g in p_grads.items()}
@@ -1182,23 +1355,23 @@ def check_train_f32(paths) -> dict:
     rel, noise = gap(k_grads), gap(n_grads)
     for n in rel:
         if not rel[n] <= GRAD_NOISE_FACTOR * noise[n] + GRAD_FLOOR:
-            raise AssertionError(f"phase 7b: the gradient of {n} parts from the plain path by "
+            raise AssertionError(f"{phase}: the gradient of {n} parts from the plain path by "
                                  f"{rel[n]:.3e} of its norm, the noisy plain path by {noise[n]:.3e}")
     far, n_entries = {"kernel": 0, "noisy": 0}, 0
     for n, p in p_params.items():
         if n.startswith("vit.") and not (torch.equal(k_params[n], start[n])
                                          and torch.equal(p, start[n])):
-            raise AssertionError(f"phase 7b: the frozen {n} moved")
+            raise AssertionError(f"{phase}: the frozen {n} moved")
         # p +- lr rounds to f32: up to an ulp of p on each side
         bound = 2 * lr + 2 * torch.finfo(torch.float32).eps * p.abs()
         for key, params in (("kernel", k_params), ("noisy", n_params)):
             diff = (params[n] - p).abs()
             if not bool((diff <= bound).all()):
-                raise AssertionError(f"phase 7b: {key} {n} parts by {float(diff.max())} > 2 lr")
+                raise AssertionError(f"{phase}: {key} {n} parts by {float(diff.max())} > 2 lr")
             far[key] += int((diff > 0.01 * lr).sum())
         n_entries += p.numel()
     if not far["kernel"] <= GRAD_NOISE_FACTOR * far["noisy"] + 100:
-        raise AssertionError(f"phase 7b: {far} of {n_entries} parameters part by > lr/100")
+        raise AssertionError(f"{phase}: {far} of {n_entries} parameters part by > lr/100")
     ratio = {n: rel[n] / max(noise[n], 1e-12) for n in rel}
     worst, worst_ratio = max(rel, key=rel.get), max(ratio, key=ratio.get)
     out = {"loss_kernel": k_loss, "loss_plain": p_loss, "loss_noisy": n_loss,
@@ -1207,14 +1380,229 @@ def check_train_f32(paths) -> dict:
            "worst_grad_gap_over_noise": [worst_ratio, ratio[worst_ratio], rel[worst_ratio],
                                          noise[worst_ratio]],
            "params_parted_over_lr_100": far, "param_entries": n_entries, "lr": lr}
-    log(f"phase 7b: f32 train step (batch 4) kernels vs plain: loss {k_loss:.6f} vs {p_loss:.6f} "
+    log(f"{phase}: f32 train step (batch 4) kernels vs plain: loss {k_loss:.6f} vs {p_loss:.6f} "
         f"(rel err {loss_err:.2e}, tol {LOSS_RTOL}; noisy plain {n_loss:.6f}); the widest "
         f"gradient gap {worst} {rel[worst]:.2e} of its norm (noisy plain {noise[worst]:.2e}); "
         f"kernel gap over noisy gap at most {ratio[worst_ratio]:.3f} ({worst_ratio}; allowed "
         f"{GRAD_NOISE_FACTOR}); after the adam step at LR {lr:.1e} every parameter within 2 lr, "
         f"{far['kernel']} of {n_entries} entries part by more than lr/100 ({far['noisy']} for "
-        f"the noisy plain path); the ViT unmoved")
-    log(f"phase 7b: {json.dumps(out)}")
+        f"the noisy plain path); a frozen ViT unmoved")
+    log(f"{phase}: {json.dumps(out)}")
+    del ex
+    torch.cuda.empty_cache()
+    return out
+
+
+# -- phases 8, 8b and 8c ------------------------------------------------------
+
+
+def phoneme_train_config(paths, save_path, **over) -> Config:
+    """The PhonemeSaL preset (configs/phonemesal.yaml) at full width as a dict
+    Config, on the synthetic SaL fixture: adam (0.9, 0.98), eps 1e-9, LR 5e-5
+    with the LinearLR warmup over 2000 steps, batch 16, answers of 40
+    phoneme ids, eval 80 and predict 128 ids, dropout 0.1, bf16."""
+    return Config({**dict(
+        PSAL_FULL, EXECUTOR="PhonemeSaL_Executor", MODEL_CLASS="PhonemeSaL",
+        MODEL_MOD_CONFIG_CLASS="CustomizedSaL_config", backbone_name="VietAI/vit5-base",
+        SAVE=True, SAVE_PATH=save_path, LR=5e-5, BETAS=[0.9, 0.98], warmup_step=2000,
+        NUM_EPOCHS=1, NUM_FREEZE_EPOCH=0, TRAIN_BATCH_SIZE=TRAIN_BATCH, EVAL_BATCH_SIZE=BATCH,
+        PREDICT_BATCH_SIZE=BATCH, max_eval_length=80, max_predict_length=128,
+        get_predict_score=True, max_ocr_element=SAL_OCR_ELEMENTS,
+        max_ocr_length=SAL_FULL["max_ocr_length"], max_obj_element=SAL_OBJ_ELEMENTS,
+        max_obj_length=SAL_OBJ_LEN, max_q_length=SAL_FULL["max_q_length"],
+        max_a_length=PSAL_ANSWER, base_ocr_feature_path=paths["ocr_features"],
+        base_obj_feature_path=paths["obj_features"], qa_train_path=paths["train"],
+        qa_val_path=paths["val"], qa_predict_path=paths["predict"], context_token="<c>",
+        dropout_rate=0.1, DTYPE="bfloat16", SEED=SEED,
+    ), **over})
+
+
+def sal_train_fixture(root):
+    """The synthetic SaL fixture (its answers are the Vietnamese ones of
+    ``data/synthetic.py``) with one epoch of TRAIN_STEPS batches."""
+    return synthetic.make_sal_fixture(os.path.join(root, "sal_train"), n_images=8,
+                                      n_rows=TRAIN_BATCH * TRAIN_STEPS,
+                                      n_ocr_words=SAL_OCR_ELEMENTS,
+                                      region_hidden=SAL_FULL["obj_hidden"])
+
+
+def timed_steps(ex, batches) -> float:
+    """ms per step of ``ex.train_step`` over ``batches``, synchronized."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for batch in batches:
+        check_losses("timed steps", [float(ex.train_step(batch))])
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / len(batches)
+
+
+def train_phoneme_sal(paths) -> dict:
+    """Phase 8 (see the module docstring)."""
+    n_enc = T5_BASE["num_encoder_layers"]
+    per_step = {"flash_attention": 2 * PSAL_FULL["num_decoder_layers"],
+                "sal_fused_attention": n_enc}  # decoder self + cross; every encoder layer
+    per_eval = {"flash_attention": 0, "sal_fused_attention": n_enc}
+    save = os.path.join(paths["root"], "psal_ckpts")
+    config = phoneme_train_config(paths, save)
+    t0 = time.perf_counter()
+    ex = PhonemeSaLExecutor(config, "train", device=DEVICE)
+    setup_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in ex.state.params.values())
+    n_trainable = sum(ex.state.params[n].numel() for n in ex.state.opt_state["mu"])
+    parts = {}
+    for name, p in ex.state.params.items():
+        key = name.split(".")[0] if not name.startswith("t5.") else ".".join(name.split(".")[:2])
+        parts[key] = parts.get(key, 0) + p.numel() / 1e6
+
+    losses = []
+    step = ex.train_step
+
+    def recorded(batch):
+        loss = step(batch)
+        losses.append(float(loss))
+        return loss
+
+    ex.train_step = recorded
+    reset_launches()
+    t0 = time.perf_counter()
+    ex.train()  # one epoch, then eval and last/best saves
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    del ex.train_step
+    n_eval = -(-len(ex.val_data) // BATCH)
+    check_losses("phase 8", losses)
+    if len(losses) != TRAIN_STEPS:
+        raise AssertionError(f"phase 8: {len(losses)} steps, want {TRAIN_STEPS}")
+    train_launches = launches()
+    check_launches("phase 8 train()", train_launches, {
+        k: per_step[k] * TRAIN_STEPS + per_eval[k] * n_eval for k in KERNELS})
+
+    restored = ex.ckpt.restore("last", DEVICE)
+    if (restored["step"], restored["epoch"]) != (TRAIN_STEPS, 1) or any(
+            not torch.equal(restored["params"][n], p) for n, p in ex.state.params.items()):
+        raise AssertionError("phase 8: last_ckp does not hold the trained masters")
+    if restored["opt_state"]["count"] != TRAIN_STEPS:
+        raise AssertionError("phase 8: last_ckp's optimizer count is not the step")
+    del restored
+    ckpt_bytes = os.path.getsize(os.path.join(save, "last_ckp"))
+
+    reset_launches()
+    t0 = time.perf_counter()
+    predictor = PhonemeSaLExecutor(config, "predict", predicttype="best", device=DEVICE)
+    results = predictor.run()
+    torch.cuda.synchronize()
+    predict_s = time.perf_counter() - t0
+    n_predict = -(-len(predictor.predict_data) // BATCH)
+    check_launches("phase 8 predict", launches(), {k: per_eval[k] * n_predict for k in KERNELS})
+    with open(os.path.join(save, "results.json"), encoding="utf-8") as f:
+        if json.load(f) != results or len(results) != len(predictor.predict_data):
+            raise AssertionError("phase 8: results.json does not hold the predictions")
+    gens = [r["gens"][0] for r in results]
+    if any("<" in g for g in gens):
+        raise AssertionError(f"phase 8: phoneme or tone tokens in the answers {gens[:3]}")
+    del predictor
+    torch.cuda.empty_cache()
+
+    batches = [b for b, _ in itertools.islice(
+        batch_iterator(ex.train_data, TRAIN_BATCH, shuffle=True, seed=99, drop_last=True), 14)]
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    ex.train_step(batches[0])
+    torch.cuda.synchronize()
+    check_launches("phase 8 one step", launches(), per_step)
+    step_ms = timed_steps(ex, batches[1:6])
+    split = {"forward_ms": 0.0, "backward_ms": 0.0, "optimizer_ms": 0.0}
+    for batch in batches[6:8]:
+        tb = ex._to_device(batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = ex.forward_loss(tb)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        ex.apply_gradients()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for key, dt in zip(split, (t1 - t0, t2 - t1, t3 - t2)):
+            split[key] += 1e3 * dt / 2
+        check_losses("phase 8 split", [float(loss.detach())])
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    prof = profile_train(ex, batches[:3])
+
+    # SAL_FUSED off: the bias materialized once a forward, every encoder
+    # layer through the attention kernel
+    attn_mod.enable_sal_fused(False)
+    try:
+        reset_launches()
+        ex.train_step(batches[8])
+        torch.cuda.synchronize()
+        off_launches = launches()
+        check_launches("phase 8 SAL_FUSED off", off_launches, {
+            "flash_attention": per_step["flash_attention"] + n_enc, "sal_fused_attention": 0})
+        off_ms = timed_steps(ex, batches[9:14])
+    finally:
+        attn_mod.enable_sal_fused(True)
+    on_ms = timed_steps(ex, batches[1:6])  # on again, after off: drift shows in the pair
+
+    batch = batches[0]
+    lr = ex._lr_schedule(ex.state.step)
+    before = eval_loss(ex, batch)
+    repeat = [float(ex.train_step(batch)) for _ in range(REPEAT_STEPS)]
+    after = eval_loss(ex, batch)
+    check_losses("phase 8 repeated batch", repeat)
+    if not after < before:
+        raise AssertionError(f"phase 8: {REPEAT_STEPS} steps on one batch at LR {lr} did not "
+                             f"lower its loss: {before} -> {after} ({repeat})")
+    out = {
+        "params_m": n_params / 1e6, "trainable_m": n_trainable / 1e6, "params_m_by_part": parts,
+        "setup_s": setup_s, "train_epoch_s": train_s, "steps": TRAIN_STEPS,
+        "losses": losses, "eval_batches": n_eval, "train_launches": train_launches,
+        "predict_s": predict_s, "predict_answers": gens[:3], "checkpoint_gb": ckpt_bytes / 1e9,
+        "launches_per_step": per_step, "launches_per_eval_batch": per_eval,
+        "ms_per_step": step_ms, "samples_per_s": 1e3 * TRAIN_BATCH / step_ms, **split,
+        "peak_memory_gb": peak_gb, **prof,
+        "device_busy_share": prof["device_busy_ms_per_step"] / step_ms,
+        "sal_fused_off_launches_per_step": off_launches,
+        "sal_fused_off_ms_per_step": off_ms, "sal_fused_on_ms_per_step_after": on_ms,
+        "repeat_lr": lr, "repeat_eval_loss": [before, after], "repeat_train_losses": repeat,
+    }
+    log(f"phase 8: PhonemeSaL-base trained {TRAIN_STEPS} steps at batch {TRAIN_BATCH} (bf16 "
+        f"compute, f32 masters, {n_trainable / 1e6:.1f}M trainable of {n_params / 1e6:.1f}M): "
+        f"{step_ms:.3f} ms/step, {out['samples_per_s']:.3f} samples/s; split {json.dumps(split)}; "
+        f"busy share {out['device_busy_share']:.3f}; attention kernels "
+        f"{prof['attention_kernel_ms_per_step']:.3f} ms/step in "
+        f"{prof['attention_kernel_launches_per_step']:.0f} launches (counted {per_step}); peak "
+        f"{peak_gb:.2f} GB; checkpoint {ckpt_bytes / 1e9:.2f} GB; SAL_FUSED off {off_ms:.3f} "
+        f"ms/step vs on {step_ms:.3f} / {on_ms:.3f} (before / after); one batch x {REPEAT_STEPS} "
+        f"at LR {lr:.3e}: eval loss {before:.4f} -> {after:.4f}; answers {gens[:3]}")
+    log(f"phase 8: {json.dumps(out)}")
+    del ex
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_sal_steps(paths) -> dict:
+    """Phase 8c: 3 train steps of the stock SaLExecutor at configs/sal.yaml's
+    widths (batch 16, answers of 40 backbone ids) and their launches."""
+    n_enc, n_dec = T5_BASE["num_encoder_layers"], T5_BASE["num_t5_decoder_layers"]
+    per_step = {"flash_attention": 2 * n_dec, "sal_fused_attention": n_enc}
+    config = phoneme_train_config(
+        paths, os.path.join(paths["root"], "sal_ckpts"), EXECUTOR="SaL_Executor",
+        MODEL_CLASS="SaL", MODEL_MOD_CONFIG_CLASS="SaL_config", SAVE=False)
+    ex = SaLExecutor(config, "train", device=DEVICE)
+    batches = [b for b, _ in itertools.islice(
+        batch_iterator(ex.train_data, TRAIN_BATCH, shuffle=True, seed=98, drop_last=True), 3)]
+    reset_launches()
+    ex.train_step(batches[0])
+    torch.cuda.synchronize()
+    check_launches("phase 8c one step", launches(), per_step)
+    ms = timed_steps(ex, batches[1:])
+    out = {"params_m": sum(p.numel() for p in ex.state.params.values()) / 1e6,
+           "launches_per_step": per_step, "ms_per_step": ms}
+    log(f"phase 8c: SaL-base (stock T5 decoder) 3 train steps at batch {TRAIN_BATCH}: "
+        f"{json.dumps(out)}")
     del ex
     torch.cuda.empty_cache()
     return out
@@ -1280,16 +1668,40 @@ def main() -> None:
             {"flash_attention": 2 * n_dec, "sal_fused_attention": 2 * n_t5},
             os.path.join(root, "sal"),
         )
+        n_custom = PSAL_FULL["num_decoder_layers"]
+        psal_served, psal_e2e = run_family(
+            "4c", "PhonemeSaL-base", build_phoneme_sal, sal_fixture, phoneme_engine, tokenizer,
+            {"flash_attention": 0, "sal_fused_attention": n_t5},
+            # teacher forcing: the encoder through the SaL kernel, the custom
+            # decoder's self and cross layers through the attention kernel;
+            # then generate's encode through the SaL kernel again
+            {"flash_attention": 2 * n_custom, "sal_fused_attention": 2 * n_t5},
+            os.path.join(root, "psal"), vocab=len(PhonemeTokenizer()), max_answer=PSAL_ANSWER,
+        )
         shapes = time_kernel()
         sal_shape = time_sal_kernel()
+        sal_choice = time_sal_fused_choice()
         ablations = time_ablations()
-        train_shapes = time_train_shapes()
+        train_shapes = time_train_shapes(training_shapes(torch.bfloat16))
+        psal_shapes = time_train_shapes(phoneme_training_shapes(torch.bfloat16))
+        sal_train_shape = time_sal_train_shape()
         # every encoder, decoder self and cross layer recomputes in the backward
         recompute = sum(n_t5 * r["recompute_backward_ms"] for r in train_shapes
                         if "recompute_backward_ms" in r)
         paths = train_fixture(root)
         trained = train_latr(paths, recompute)
-        train_f32 = check_train_f32(paths)
+        train_f32 = check_train_f32("phase 7b", LaTrExecutor(latr_train_config(
+            paths, os.path.join(paths["root"], "f32"), DTYPE="float32", TRAIN_BATCH_SIZE=4,
+            SAVE=False), "train", device=DEVICE), {"flash_attention": trained["launches_per_step"],
+                                                   "sal_fused_attention": 0})
+        shutil.rmtree(os.path.join(paths["root"], "ckpts"))  # phase 7's 2 x 3.8 GB
+        psal_paths = sal_train_fixture(root)
+        psal_trained = train_phoneme_sal(psal_paths)
+        psal_f32 = check_train_f32("phase 8b", PhonemeSaLExecutor(phoneme_train_config(
+            psal_paths, os.path.join(psal_paths["root"], "f32"), DTYPE="float32",
+            TRAIN_BATCH_SIZE=4, SAVE=False), "train", device=DEVICE),
+            psal_trained["launches_per_step"])
+        sal_steps = train_sal_steps(psal_paths)
 
     per_batch = lambda key: 12 * shapes[0][key] + 12 * shapes[1][key]
     per_step = lambda key: 12 * sum(r[key] for r in train_shapes)
@@ -1324,6 +1736,15 @@ def main() -> None:
         "train_shapes": train_shapes,
         "max_grad_err_f32": grads["max_grad_err_f32"],
         "max_grad_err_bf16": grads["max_grad_err_bf16"],
+        # PhonemeSaL-base training (phases 3c, 6d, 8): the custom decoder's
+        # self and cross layers (4 each) a step, and the SaL encoder's 12
+        # layers with SAL_FUSED off
+        "launches_train_phoneme_sal": psal_trained["train_launches"]["flash_attention"],
+        "launches_per_train_step_phoneme_sal": psal_trained["launches_per_step"]["flash_attention"],
+        "phoneme_sal_train_step_ms": n_custom * sum(r["ms"] for r in psal_shapes[:2]),
+        "phoneme_sal_train_step_recompute_backward_ms": n_custom * sum(
+            r["recompute_backward_ms"] for r in psal_shapes[:2]),
+        "phoneme_sal_train_shapes": psal_shapes,
     }, {
         "name": "sal_fused_attention",
         "route": "cuda",
@@ -1342,12 +1763,24 @@ def main() -> None:
         "library_ms": n_t5 * sal_shape["library_ms"],
         "shapes": [sal_shape],
         "ablations": ablations["sal_fused_attention"],
-        "launches_train": 0,  # SaL training is not ported yet
+        "sal_fused_choice": sal_choice,
+        # PhonemeSaL-base training (phase 8): 12 launches a step, 12 an eval
+        # batch; per step at the training shape (12 layers)
+        "launches_train": psal_trained["train_launches"]["sal_fused_attention"],
+        "launches_per_train_step": n_t5,
+        "train_step_ms": n_t5 * sal_train_shape["ms"],
+        "train_step_plain_ms": n_t5 * sal_train_shape["plain_ms"],
+        "train_step_bound_ms": n_t5 * sal_train_shape["bound_ms"],
+        "train_step_library_ms": n_t5 * sal_train_shape["library_ms"],
+        "train_step_recompute_backward_ms": n_t5 * sal_train_shape["recompute_backward_ms"],
+        "train_shapes": [sal_train_shape],
         "max_grad_err_bf16": grads["sal_max_grad_err"],
     }]
-    log(json.dumps({"serving": {"latr": served, "sal": sal_served},
-                    "end_to_end_f32": {"latr": e2e, "sal": sal_e2e},
-                    "train": {"latr": trained, "f32_step": train_f32}, "card": card}))
+    log(json.dumps({"serving": {"latr": served, "sal": sal_served, "phoneme_sal": psal_served},
+                    "end_to_end_f32": {"latr": e2e, "sal": sal_e2e, "phoneme_sal": psal_e2e},
+                    "train": {"latr": trained, "f32_step": train_f32,
+                              "phoneme_sal": psal_trained, "phoneme_sal_f32_step": psal_f32,
+                              "sal": sal_steps}, "card": card}))
     log(json.dumps({"kernels": kernels}))
     log(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -13,7 +13,9 @@ are element-equal to the JAX package's.
 * object labels are tokenized per word (no context token); each subword
   gets the region's box and its region feature
 * both streams are closed with EOS (box 0.9999^4) and padded (box zeros)
-* question/answer: "<pad> "-prefixed, padded to max length
+* question/answer: "<pad> "-prefixed, padded to max length; an
+  ``answer_encoder(answer, max_length) -> (ids, mask)`` replaces the
+  answer's encoding (the custom decoders' answer tokenizers)
 * features load lazily per batch from ``{base_*_feature_path}/{image_id}.npy``
 """
 
@@ -98,6 +100,7 @@ class SaLDataset:
         max_input_length: int = 30,
         max_output_length: int = 128,
         context_token: str = "<c>",
+        answer_encoder=None,
     ):
         self.base_ocr_feature_path = base_ocr_feature_path
         self.base_obj_feature_path = base_obj_feature_path
@@ -111,6 +114,7 @@ class SaLDataset:
         arrays = self._featurize(
             rows, tokenizer, self.context_token_id, max_ocr_element, max_ocr_length,
             max_obj_element, max_obj_length, max_input_length, max_output_length,
+            answer_encoder,
         )
         # subword -> word alignment for the lazy feature gathers (-1 = no word)
         self._ocr_word_ids = arrays.pop("_ocr_word_ids")
@@ -127,7 +131,8 @@ class SaLDataset:
 
     @staticmethod
     def _featurize(rows, tokenizer, context_token_id, max_ocr_element, max_ocr_length,
-                   max_obj_element, max_obj_length, max_input_length, max_output_length):
+                   max_obj_element, max_obj_length, max_input_length, max_output_length,
+                   answer_encoder=None):
         n = len(rows)
         arr = lambda *shape: np.zeros(shape, np.int32)
         input_ids, src_mask = arr(n, max_input_length), arr(n, max_input_length)
@@ -159,8 +164,10 @@ class SaLDataset:
             input_ids[i], src_mask[i] = encode_prefixed(
                 tokenizer, str(row["question"]), max_input_length
             )
-            label_ids[i], label_mask[i] = encode_prefixed(
-                tokenizer, str(row["answer"]), max_output_length
+            answer = str(row["answer"])
+            label_ids[i], label_mask[i] = (
+                encode_prefixed(tokenizer, answer, max_output_length) if answer_encoder is None
+                else answer_encoder(answer, max_output_length)
             )
 
         return {

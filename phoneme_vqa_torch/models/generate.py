@@ -9,9 +9,18 @@ import torch
 from ..decode.greedy import greedy_decode
 
 
+def decode_token_ids(model):
+    """(bos, eos, pad) a model decodes with: its answer vocabulary's
+    (``decode_token_ids``, the custom decoders) or the T5 backbone's."""
+    ids = getattr(model, "decode_token_ids", None)
+    if ids is None:
+        t5c = model.cfg.t5
+        ids = (t5c.decoder_start_token_id, t5c.eos_token_id, t5c.pad_token_id)
+    return tuple(int(i) for i in ids)
+
+
 def make_generate_fn(model, max_length: int, with_scores: bool = False):
-    t5c = model.cfg.t5
-    bos, eos, pad = t5c.decoder_start_token_id, t5c.eos_token_id, t5c.pad_token_id
+    bos, eos, pad = decode_token_ids(model)
 
     @torch.inference_mode()
     def generate(batch):

@@ -6,10 +6,23 @@ where each feature stream's embed is ``RMSNorm(proj(features)) +
 RMSNorm(proj(bbox4)) + T5-embed(ids)``, with one norm per stream applied to
 the two projections apart. A 2D position bias (1D sequence + SCP spatial on
 the OCR block, ``models/rel_bias_2d.py``) replaces the encoder's own
-relative bias and reaches every encoder layer in factored form, so on the
-card each encoder attention is the SaL kernel
-(``ops/sal_fused_attention.py``). Stock T5 decoder and tied LM head.
-Inference only: there is no train path yet.
+relative bias. :class:`SaLFusion` holds this shared front end and encoder;
+:class:`SaL` adds the stock T5 decoder and tied LM head, and
+``models/customized.py`` the custom answer decoders.
+
+How the bias reaches the encoder is the ``SAL_FUSED`` knob
+(``ops.attention.enable_sal_fused``, set by the executor), see
+:func:`encoder_bias`: on, every encoder layer gets the factored form, so on
+the card each encoder attention is the SaL kernel
+(``ops/sal_fused_attention.py``), in training under ``SalAttentionFn``
+(kernel forward, backward recomputed through the materialized bias); off,
+the (B, H, L, L) f32 bias is materialized once per forward and every layer
+reads it through the attention kernel. Both compute the same function. The
+JAX package materializes in training whatever the knob (``train_bias``),
+because XLA on a TPU v5e ran the fused kernel's recompute backward slower;
+that is an XLA means and does not carry over: the port keeps the factored
+form in training too and lets the knob, set from H100 times (PERF.md),
+choose. Dropout sits in the T5 blocks (``models/t5.py``).
 
 Model surface as ``models/latr.py``: ``forward(batch, labels, label_mask)``,
 ``fuse(batch)``, ``encode_for_generate(batch, max_len)`` and
@@ -24,6 +37,8 @@ import dataclasses
 import torch
 from torch import nn
 
+from ..ops import attention as attn_mod
+from ..ops.sal_fused_attention import FusedSalBias
 from ..utils.device import resolve_device
 from ..utils.registry import MODEL_CONFIGS, MODELS
 from .latr import init_random_, t5_config_from_yaml
@@ -72,16 +87,26 @@ class SaL_config:
         )
 
 
-@MODELS.register("SaL")
-class SaL(nn.Module):
-    def __init__(self, cfg: SaLConfig, device="cuda"):
+def encoder_bias(bias: FusedSalBias):
+    """The 2D bias as every encoder layer receives it: the factored form
+    when ``SAL_FUSED`` is on (the SaL kernel on the card), else the (B, H, L,
+    L) f32 bias materialized once (the attention kernel on the card)."""
+    return bias if attn_mod.sal_fused_enabled() else bias.materialize()
+
+
+class SaLFusion(nn.Module):
+    """The SaL family's front end (stream embeddings, the 2D bias) and T5
+    encoder; subclasses add a decoder. ``t5_decoder`` builds the stock T5
+    decoder into ``t5``."""
+
+    def __init__(self, cfg: SaLConfig, device="cuda", t5_decoder: bool = True):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
         t5c = cfg.t5
         dense = lambda d_in: nn.Linear(d_in, t5c.d_model, device=device, dtype=t5c.dtype)
         norm = lambda: RMSNorm(t5c.d_model, t5c.layer_norm_epsilon, t5c.dtype, device)
-        self.t5 = T5(t5c, device, encoder_rel_bias=False)
+        self.t5 = T5(t5c, device, encoder_rel_bias=False, decoder=t5_decoder)
         self.rel2d = Sal2DPositionBias(t5c.num_heads, device=device)
         self.ocr_feature_projector = dense(cfg.ocr_hidden)
         self.ocr_bbox_projector = dense(4)
@@ -130,15 +155,23 @@ class SaL(nn.Module):
         bias = bias._replace(bias1d=bias.bias1d.to(dtype), cell_bias=bias.cell_bias.to(dtype))
         return embeds, mask, bias
 
+    def encode(self, batch):
+        """(encoder output, encoder mask) of a batch."""
+        embeds, enc_mask, bias = self.fuse(batch)
+        return self.t5.encode(embeds, enc_mask, position_bias=encoder_bias(bias)), enc_mask
+
+
+@MODELS.register("SaL")
+class SaL(SaLFusion):
+    """SaL with the stock T5 decoder and tied LM head."""
+
     def forward(self, batch, labels, label_mask):
         """Teacher-forced (B, T, V) f32 logits."""
-        embeds, enc_mask, bias = self.fuse(batch)
-        enc_out = self.t5.encode(embeds, enc_mask, position_bias=bias)
+        enc_out, enc_mask = self.encode(batch)
         return self.t5.decode(labels, enc_out, enc_mask, label_mask)
 
     def encode_for_generate(self, batch, max_length: int):
-        embeds, enc_mask, bias = self.fuse(batch)
-        enc_out = self.t5.encode(embeds, enc_mask, position_bias=bias)
+        enc_out, enc_mask = self.encode(batch)
         cache, full_bias = self.t5.init_cache(enc_out, max_length)
         return cache, full_bias, enc_mask
 
@@ -146,14 +179,15 @@ class SaL(nn.Module):
         return self.t5.decode_step(tokens, cache, index, full_bias, enc_mask)
 
 
-def build_sal(config, device="cuda", seed: int = 0) -> SaL:
-    """A SaL from a YAML-style config with seeded random weights
-    (``models.latr.init_random_``). Modules are built on the meta device
-    first, so no default init runs."""
+def build_sal(config, device="cuda", seed: int = 0, model_cls=None, cfg=None) -> SaLFusion:
+    """A SaL-family model (``model_cls``, default :class:`SaL`; ``cfg``,
+    default ``SaL_config().build(config)``) from a YAML-style config with
+    seeded random weights (``models.latr.init_random_``). Modules are built
+    on the meta device first, so no default init runs."""
     device = resolve_device(device)
-    cfg = SaL_config().build(config)
+    cfg = SaL_config().build(config) if cfg is None else cfg
     with torch.device("meta"):
-        model = SaL(cfg, device="meta")
+        model = (model_cls or SaL)(cfg, device="meta")
     model = model.to_empty(device=device)
     generator = torch.Generator(device=device).manual_seed(seed)
     return init_random_(model, generator).eval()

@@ -352,17 +352,24 @@ class T5Decoder(nn.Module):
 
 class T5(nn.Module):
     """Full encoder-decoder with shared token embedding and LM head. Every
-    dropout site draws from ``dropout_rng``."""
+    dropout site draws from ``dropout_rng``.
 
-    def __init__(self, cfg: T5Config, device=None, encoder_rel_bias: bool = True):
+    ``decoder=False`` builds the encoder and the shared embedding only, for
+    a model with its own answer decoder (``models/customized.py``): flax
+    never creates the parameters of a submodule that is never called, so
+    such a model's ``t5`` tree holds ``encoder`` and ``shared`` alone."""
+
+    def __init__(self, cfg: T5Config, device=None, encoder_rel_bias: bool = True,
+                 decoder: bool = True):
         super().__init__()
         self.cfg = cfg
         self.dropout_rng = DropoutRNG()
         self.shared = nn.Embedding(cfg.vocab_size, cfg.d_model, device=device, dtype=torch.float32)
         self.encoder = T5Encoder(cfg, device, rel_bias=encoder_rel_bias, rng=self.dropout_rng)
-        self.decoder = T5Decoder(cfg, device, rng=self.dropout_rng)
-        if not cfg.tie_word_embeddings:
-            self.lm_head = _linear(cfg.d_model, cfg.vocab_size, cfg, device)
+        if decoder:
+            self.decoder = T5Decoder(cfg, device, rng=self.dropout_rng)
+            if not cfg.tie_word_embeddings:
+                self.lm_head = _linear(cfg.d_model, cfg.vocab_size, cfg, device)
 
     def embed(self, ids: torch.Tensor) -> torch.Tensor:
         return self.shared(ids).to(self.cfg.dtype)

@@ -24,6 +24,26 @@ NEG_INF = -1e9
 # plain PyTorch, as in the JAX package: the kernel tiles 64 query rows.
 _FLASH_MIN_QLEN = 16
 
+# SAL_FUSED: a FusedSalBias on the card goes to the SaL kernel, which
+# rebuilds the 2D bias in its tiles; off, it is materialized as a (B, H, L,
+# L) f32 tensor and read by the attention kernel (and the SaL models
+# materialize it once per forward, ``models.sal.encoder_bias``). On by
+# default: on an H100 the 12 SaL-kernel launches of a SaL-base batch take
+# less time than one materialization plus 12 attention-kernel launches on
+# the bias (PERF.md, ``chip_smoke.py`` phase 6b). The JAX package's default
+# (off) was set by TPU v5e times.
+SAL_FUSED_ENABLED = True
+
+
+def enable_sal_fused(enabled: bool = True) -> None:
+    """The ``SAL_FUSED`` knob (the executor sets it from the config)."""
+    global SAL_FUSED_ENABLED
+    SAL_FUSED_ENABLED = bool(enabled)
+
+
+def sal_fused_enabled() -> bool:
+    return SAL_FUSED_ENABLED
+
 
 def reference_attention(
     q: torch.Tensor,  # (B, H, Lq, D)
@@ -113,8 +133,8 @@ def dot_product_attention(
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """A CUDA call with a ``FusedSalBias``, no causal mask, no scale and
-    Lq == Lk launches the SaL kernel; any other ``FusedSalBias`` is
-    materialized first. Then a CUDA call with Lq >= 16 and a 2-D key mask (or
+    Lq == Lk launches the SaL kernel while ``SAL_FUSED`` is on; any other
+    ``FusedSalBias`` is materialized first. Then a CUDA call with Lq >= 16 and a 2-D key mask (or
     none) launches the fused kernel; every other call (CPU tensors, one-token
     decode steps) takes the plain version. A kernel call that needs
     gradients (grad mode on and an input that requires grad) goes through
@@ -127,7 +147,8 @@ def dot_product_attention(
     from .sal_fused_attention import FusedSalBias
 
     if isinstance(bias, FusedSalBias):
-        if q.is_cuda and not causal and scale is None and q.shape[-2] == k.shape[-2]:
+        if (SAL_FUSED_ENABLED and q.is_cuda and not causal and scale is None
+                and q.shape[-2] == k.shape[-2]):
             from .sal_fused_attention import SalAttentionFn, sal_fused_attention
 
             mask = (

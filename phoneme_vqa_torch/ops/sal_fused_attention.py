@@ -46,13 +46,35 @@ LAUNCHES = 0  # kernel launches since import (or since a caller reset it)
 _lib = None
 
 
+class _CellPairGather(torch.autograd.Function):
+    """``cell_bias[:, cell_q, cell_k]`` as (B, H, L, L) f32, differentiable
+    in ``cell_bias`` by one-hot products: dcell_bias[h] = sum over the batch
+    of onehot(cell)ᵀ · g[b, h] · onehot(cell), the same sums as the
+    gather's own backward in another order. That backward is an
+    accumulating scatter of B·H·L·L values into H·C·C slots, most of them
+    into the one sentinel pair: on an H100 it took 68 ms a SaL-base encoder
+    layer at B=16 (PERF.md), the product a fraction of a millisecond."""
+
+    @staticmethod
+    def forward(ctx, cell_bias, cell):  # cell: int64 in [0, C)
+        ctx.save_for_backward(cell)
+        ctx.table = (cell_bias.shape[-1], cell_bias.dtype)
+        return cell_bias[:, cell[:, :, None], cell[:, None, :]].transpose(0, 1).float()
+
+    @staticmethod
+    def backward(ctx, g):
+        (cell,) = ctx.saved_tensors
+        c, dtype = ctx.table
+        onehot = torch.nn.functional.one_hot(cell, c).to(g.dtype)[:, None]  # (B, 1, L, C)
+        per_item = torch.matmul(torch.matmul(onehot.transpose(-1, -2), g), onehot)
+        return per_item.sum(0).to(dtype), None
+
+
 def materialize_sal_bias(bias1d, cell_bias, cell) -> torch.Tensor:
     """(B, H, L, L) f32 = bias1d + cell_bias[:, cell_q, cell_k]; cell ids
     above C - 1 read the sentinel row and column."""
-    c = cell_bias.shape[-1]
-    cell = cell.long().clamp(max=c - 1)
-    scp = cell_bias[:, cell[:, :, None], cell[:, None, :]]  # (H, B, L, L)
-    return bias1d.float()[None] + scp.transpose(0, 1).float().contiguous()
+    cell = cell.long().clamp(max=cell_bias.shape[-1] - 1)
+    return bias1d.float()[None] + _CellPairGather.apply(cell_bias, cell).contiguous()
 
 
 class FusedSalBias(NamedTuple):

@@ -13,7 +13,7 @@ from __future__ import annotations
 import argparse
 
 from .config import get_config
-from .train import LaTrExecutor  # noqa: F401  (registers the executors)
+from . import train  # noqa: F401  (registers the executors)
 from .utils.registry import EXECUTORS
 
 

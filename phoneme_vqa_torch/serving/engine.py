@@ -4,10 +4,12 @@ Counterpart of the request path of ``phoneme_vqa_tpu/serving/engine.py``:
 requests (image_id, question) are featurized against preloaded feature
 stores (:func:`featurize_requests`), decoded in fixed-size batches with the
 final batch padded (as ``BaseExecutor.infer`` pads it), and each row is cut
-at EOS and detokenized (as ``BaseExecutor._decode_rows`` does). It serves
-the LaTr family from an OCR store and page images, and the SaL family when
-it is given :class:`SaLInputs` (an object store and the feature files) too,
-moving the SaL batch keys to the device. Threads, queues,
+at EOS and detokenized (as ``BaseExecutor._decode_rows`` does): by the
+backbone tokenizer, or by the answer tokenizer of a model with a custom or
+phoneme decoder (``answer_tokenizer``, :func:`decode_answer_rows`). It
+serves the LaTr family from an OCR store and page images, and the SaL
+family when it is given :class:`SaLInputs` (an object store and the feature
+files) too, moving the SaL batch keys to the device. Threads, queues,
 deadlines, the watchdog, adapters, buckets and the encoding cache are not
 ported yet.
 """
@@ -79,19 +81,33 @@ def decode_rows(tokenizer, rows) -> List[str]:
     return tokenizer.batch_decode(cut, skip_special_tokens=True)
 
 
+def decode_answer_rows(answer_tokenizer, rows) -> List[str]:
+    """Detokenize rows with an answer tokenizer, which cuts them itself (the
+    char and byte tokenizers at EOS; the phoneme tokenizer drops its special
+    ids and recomposes the syllables). The char and byte tokenizers return
+    one-element lists."""
+    decoded = answer_tokenizer.batch_decode(rows)
+    return [d[0] if isinstance(d, list) else d for d in decoded]
+
+
 class ServingEngine:
     """Answers batches of requests with a LaTr or SaL model on its device.
 
     ``answer(requests)`` featurizes, decodes in batches of ``batch_size``
     (the last one padded) and returns one answer string per request. A
-    request whose image is missing from a store raises ``KeyError``."""
+    request whose image is missing from a store raises ``KeyError``.
+    ``answer_tokenizer`` decodes the answers of a model whose decoder has
+    its own vocabulary (CustomizedSaL, PhonemeSaL); ``tokenizer`` (the
+    backbone's) featurizes the requests."""
 
     def __init__(self, model, tokenizer, ocr_store, base_img_path: Optional[str],
                  batch_size: int = 32, max_answer_length: int = 20,
                  max_ocr_element: int = 50, max_ocr_length: int = 100,
-                 max_q_length: int = 30, sal: Optional[SaLInputs] = None):
+                 max_q_length: int = 30, sal: Optional[SaLInputs] = None,
+                 answer_tokenizer=None):
         self.model = model
         self.tokenizer = tokenizer
+        self.answer_tokenizer = answer_tokenizer
         self.ocr_store = ocr_store
         self.base_img_path = base_img_path
         self.sal = sal
@@ -122,4 +138,6 @@ class ServingEngine:
             tb = latr_mod.to_device_batch(batch, self.model.device, self.batch_keys)
             out = self.generate(tb)
             rows.extend(out[:n_valid].tolist())
+        if self.answer_tokenizer is not None:
+            return decode_answer_rows(self.answer_tokenizer, rows)
         return decode_rows(self.tokenizer, rows)

@@ -1,3 +1,17 @@
-from .backbone import FallbackSubwordTokenizer, load_backbone_tokenizer
+"""Tokenizers: the backbone's, and the answer tokenizers of the custom and
+phoneme decoders (``TOKENIZERS``, registered on import)."""
 
-__all__ = ["FallbackSubwordTokenizer", "load_backbone_tokenizer"]
+from .backbone import FallbackSubwordTokenizer, load_backbone_tokenizer
+from .bpe import BPETokenizer
+from .byte import ByteTokenizer
+from .char import CharTokenizer
+from .phoneme_flat import PhonemeTokenizer
+
+__all__ = [
+    "BPETokenizer",
+    "ByteTokenizer",
+    "CharTokenizer",
+    "FallbackSubwordTokenizer",
+    "PhonemeTokenizer",
+    "load_backbone_tokenizer",
+]

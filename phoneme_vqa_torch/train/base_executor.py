@@ -16,8 +16,9 @@ them: the forward and loss (:meth:`forward_loss`), ``loss.backward()``, and
 the optimizer (:meth:`apply_gradients`), which updates the f32 masters
 (``train/state.py``) and refreshes the module's bf16 compute weights from
 them. The port runs on the device the caller names (never the config's
-``DEVICE``), on one device. Every JAX knob the port does not have yet
-raises when it is set (:func:`check_unported`).
+``DEVICE``), on one device. ``SAL_FUSED`` sets the SaL kernel's dispatch
+(``ops.attention.enable_sal_fused``), as in the JAX package. Every JAX knob
+the port does not have yet raises when it is set (:func:`check_unported`).
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from ..config import Config
 from ..data.loader import batch_iterator, num_batches
 from ..models.generate import make_generate_fn
 from ..models.latr import to_device_batch
+from ..ops import attention as attn_mod
 from ..serving.engine import decode_rows
 from ..utils.device import resolve_device
 from ..utils.logger import get_logger
@@ -77,7 +79,6 @@ UNPORTED = (
     ("pretrained_weights_path", lambda v: bool(v), "A13"),
     ("MESH", lambda v: _mesh_devices(v) > 1, "A15"),
     ("FLASH", lambda v: v is not None, "B1: the port always runs its kernel on the card"),
-    ("SAL_FUSED", lambda v: v is not None, "Next 3: the SaL executor"),
 )
 
 
@@ -112,6 +113,8 @@ class BaseExecutor:
         self.best_score = 0.0
         self._generate_fns: Dict = {}
         check_unported(self.config)
+        if self.config.get("SAL_FUSED") is not None:
+            attn_mod.enable_sal_fused(bool(self.config.get("SAL_FUSED")))
         if mode == "train":
             self.config.require(*self.REQUIRED_TRAIN_KEYS)
             self._create_data_utils()
@@ -372,8 +375,12 @@ class BaseExecutor:
         labels = batch["label_ids"]
         label_mask = batch["label_attention_mask"]
         logits = self.model(self._model_batch(batch), labels[:, :-1], label_mask[:, :-1])
-        return cross_entropy_loss(logits, labels[:, 1:], self.tokenizer.pad_token_id,
+        return cross_entropy_loss(logits, labels[:, 1:], self._loss_pad_id(),
                                   label_smoothing=self._label_smoothing())
+
+    def _loss_pad_id(self) -> int:
+        """The label id the loss ignores: the decoding vocabulary's pad."""
+        return self.tokenizer.pad_token_id
 
     def _label_smoothing(self) -> float:
         """YAML ``LABEL_SMOOTHING`` in [0, 1); 0/absent = plain CE."""
@@ -384,7 +391,9 @@ class BaseExecutor:
 
     def forward_loss(self, batch) -> torch.Tensor:
         """The train step's forward: training mode, dropout drawn from
-        ``(SEED, step)``, the loss of a device batch."""
+        ``(SEED, step)`` (every dropout site of the model, a custom decoder's
+        included, draws from ``model.t5.dropout_rng``), the loss of a device
+        batch."""
         self.model.train()
         self.model.t5.dropout_rng.reseed(self.config.get("SEED", 13), self.state.step)
         return self._loss_from_batch(batch)
@@ -437,4 +446,9 @@ class BaseExecutor:
         for batch, n_valid in batch_iterator(dataset, batch_size, pad_final=True):
             out = generate(to_device_batch(batch, self.device, self.BATCH_KEYS))
             rows.extend(out[:n_valid].tolist())
+        return self._decode_rows(rows)
+
+    def _decode_rows(self, rows) -> List[str]:
+        """Cut [start, ..., eos] to the tokens between, then detokenize with
+        the backbone tokenizer."""
         return decode_rows(self.tokenizer, rows)

@@ -57,29 +57,39 @@ class LaTrExecutor(BaseExecutor):
             self.config.backbone_name, vocab_size=self.config.get("t5_vocab_size", 36096)
         )
 
+    def _adapt_frames(self) -> tuple:
+        """The feature stores ``_make_dataset`` takes after the QA rows."""
+        return (textlayout_ocr_adapt(self.config.ocr_path),)
+
+    def _prepare_decode_tokenizer(self, train_rows, val_rows):
+        """The custom decoders' executors build their answer tokenizer here."""
+
     def _create_data_utils(self):
         self._create_tokenizers()
         train_rows = read_qa_csv(self.config.qa_train_path)
         val_rows = read_qa_csv(self.config.qa_val_path)
         self.val_answer = [str(r["answer"]) for r in val_rows]
-        ocr_store = textlayout_ocr_adapt(self.config.ocr_path)
+        self._prepare_decode_tokenizer(train_rows, val_rows)
+        stores = self._adapt_frames()
         log.info("# Creating Datasets")
-        self.train_data = self._make_dataset(train_rows, ocr_store)
-        self.val_data = self._make_dataset(val_rows, ocr_store)
+        self.train_data = self._make_dataset(train_rows, *stores)
+        self.val_data = self._make_dataset(val_rows, *stores)
 
     def _init_eval_predict_mode(self):
         self._create_tokenizers()
-        ocr_store = textlayout_ocr_adapt(self.config.ocr_path)
+        stores = self._adapt_frames()
         if self.mode == "eval":
             log.info("###Load eval data ...")
             rows = read_qa_csv(self.config.qa_val_path)
             self.val_answer = [str(r["answer"]) for r in rows]
-            self.val_data = self._make_dataset(rows, ocr_store)
+            self._prepare_decode_tokenizer(rows, rows)
+            self.val_data = self._make_dataset(rows, *stores)
         else:
             log.info("###Load predict data ...")
             rows = read_qa_csv(self.config.qa_predict_path)
             self.predict_answer = [str(r["answer"]) for r in rows]
-            self.predict_data = self._make_dataset(rows, ocr_store)
+            self._prepare_decode_tokenizer(rows, rows)
+            self.predict_data = self._make_dataset(rows, *stores)
 
     # -- model -----------------------------------------------------------------
 
@@ -88,8 +98,8 @@ class LaTrExecutor(BaseExecutor):
         f32 random values (``SEED``): the masters, and through them the
         compute weights."""
         log.info("# Building model architecture ...")
-        self.model_config = MODEL_CONFIGS.get(self.config.MODEL_MOD_CONFIG_CLASS)().build(
-            self.config)
+        self.model_config = self._build_model_config(
+            MODEL_CONFIGS.get(self.config.MODEL_MOD_CONFIG_CLASS)())
         model_cls = MODELS.get(self.config.MODEL_CLASS)
         with torch.device("meta"):
             model = model_cls(self.model_config, device="meta")
@@ -101,14 +111,20 @@ class LaTrExecutor(BaseExecutor):
         self.state = TrainState(params=params, opt_state=None)
         self.ckpt = CheckpointManager(self.config.SAVE_PATH)
 
+    def _build_model_config(self, cfg_builder):
+        return cfg_builder.build(self.config)
+
     # -- training ----------------------------------------------------------------
+
+    def _default_schedule(self, steps_per_epoch: int):
+        """The family's LR schedule when ``LR_SCHEDULE`` is unset."""
+        return epoch_decay_schedule(self.config.LR, steps_per_epoch)
 
     def _init_training_properties(self):
         c = self.config
         steps_per_epoch = num_batches(len(self.train_data), c.TRAIN_BATCH_SIZE, drop_last=True)
-        schedule = schedule_from_config(
-            c, epoch_decay_schedule(c.LR, steps_per_epoch), steps_per_epoch
-        )
+        schedule = schedule_from_config(c, self._default_schedule(steps_per_epoch),
+                                        steps_per_epoch)
         self._lr_schedule = schedule  # metrics.jsonl logs the live LR
         self.tx = build_optimizer(
             schedule, betas=tuple(c.BETAS), mu_dtype=mu_dtype_from_config(c),

@@ -1,7 +1,8 @@
 """String-keyed registries.
 
 Config values such as ``EXECUTOR: "LaTr_Executor"``, ``MODEL_CLASS: "LaTr"``
-or ``MODEL_MOD_CONFIG_CLASS: "LaTr_config"`` resolve to classes through these
+or ``MODEL_MOD_CONFIG_CLASS: "LaTr_config"`` (and ``DecodeTokenizer:
+"BPE_Tokenizer"``) resolve to classes through these
 dict-based registries, as they do in ``phoneme_vqa_tpu.utils.registry``.
 The port keeps its own instances: ``register`` raises when a name is
 already bound to a different class.
@@ -42,3 +43,4 @@ class Registry:
 EXECUTORS = Registry("executor")
 MODELS = Registry("model")
 MODEL_CONFIGS = Registry("model_config")
+TOKENIZERS = Registry("tokenizer")

@@ -159,3 +159,43 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError):  # contiguous but 8 bytes past a 16-byte boundary
         fa.fused_attention(q.flatten()[2 : 2 + 2 * 31 * 64].view(1, 2, 31, 64),
                            k[:, :, :31].contiguous(), v[:, :, :31].contiguous())
+
+
+# the attention-kernel roles of a PhonemeSaL-base train step (B and H cut):
+# the custom decoder's self-attention (39 x 39, causal, scale 1/8, key mask)
+# and cross-attention (39 x 336, scale, key mask), and the SaL encoder with
+# SAL_FUSED off (336 x 336, a per-row (B, H, L, L) f32 bias, key mask)
+PHONEME_SAL_ROLES = {
+    "custom_decoder_self": (39, 39, True, 64**-0.5, False),
+    "custom_decoder_cross": (39, 336, False, 64**-0.5, False),
+    "sal_encoder_materialized": (336, 336, False, None, True),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("role", list(PHONEME_SAL_ROLES))
+def test_phoneme_sal_training_roles_through_the_function(cuda, dtype, role):
+    """Each role through the dispatch under grad: one launch inside
+    ``FusedAttentionFn``, the forward within the kernel's tolerance of the
+    plain path and every gradient equal to its (the recompute)."""
+    lq, lk, causal, scale, with_bias = PHONEME_SAL_ROLES[role]
+    q, k, v, bias, mask = _inputs(4, 12, lq, lk, 64, dtype, cuda, seed=5)
+    mask[-1] = 1
+    leaves = [t.detach().requires_grad_() for t in _as_model_views(q, k, v)]
+    if with_bias:
+        leaves.append(bias.detach().clone().requires_grad_())
+    w = torch.randn(4, 12, lq, 64, device=cuda)
+
+    def grads(attention):
+        b = leaves[3] if with_bias else None
+        out = attention(*leaves[:3], b, mask.bool(), causal, scale)
+        return out, torch.autograd.grad((out.float() * w).sum(), leaves)
+
+    before = fa.LAUNCHES
+    got_out, got = grads(dot_product_attention)
+    assert fa.LAUNCHES == before + 1 and type(got_out.grad_fn).__name__ == "FusedAttentionFnBackward"
+    want_out, want = grads(reference_attention)
+    torch.testing.assert_close(got_out.float(), want_out.float(), atol=TOL[dtype], rtol=TOL[dtype])
+    for g, ref in zip(got, want):
+        assert g is not None and g.abs().max() > 0
+        torch.testing.assert_close(g, ref, atol=0, rtol=0)

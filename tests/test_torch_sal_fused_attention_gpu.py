@@ -161,3 +161,43 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     ):
         with pytest.raises(ValueError):
             run(**bad)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sal_function_at_the_training_shape(cuda, dtype):
+    """The SaL encoder of a SaL-family train step (B=16, H=12, L=336, D=64,
+    tables in the compute type) through ``SalAttentionFn``: gradients equal
+    to the plain path's."""
+    q, k, v, bias1d, cb, cell, mask = _inputs(16, 12, 336, 64, dtype, dtype, cuda, seed=5)
+    mask[-1] = 1
+    leaves = [t.detach().requires_grad_() for t in (q, k, v, bias1d, cb)]
+    w = torch.randn(16, 12, 336, 64, device=cuda)
+    before = sfa.LAUNCHES
+    out = sfa.SalAttentionFn.apply(*leaves, cell, mask)
+    assert sfa.LAUNCHES == before + 1
+    got = torch.autograd.grad((out.float() * w).sum(), leaves)
+    want_out = sfa.sal_reference_attention(*leaves, cell, mask)
+    want = torch.autograd.grad((want_out.float() * w).sum(), leaves)
+    torch.testing.assert_close(out.float(), want_out.float(), atol=TOL[dtype], rtol=TOL[dtype])
+    for g, ref in zip(got, want):
+        assert g.abs().max() > 0
+        torch.testing.assert_close(g, ref, atol=0, rtol=0)
+
+
+def test_sal_fused_off_materializes_for_the_attention_kernel(cuda):
+    """With ``SAL_FUSED`` off a fused bias is materialized and the attention
+    kernel takes it; the result is the SaL kernel's within tolerance."""
+    from phoneme_vqa_torch.ops import attention as attn
+
+    q, k, v, bias1d, cb, cell, mask = _inputs(2, 3, 131, 64, torch.float32, torch.float32, cuda)
+    fused = sfa.FusedSalBias(bias1d, cb, cell)
+    want = dot_product_attention(q, k, v, fused, key_mask=mask.bool())
+    saved = attn.sal_fused_enabled()
+    attn.enable_sal_fused(False)
+    try:
+        before = (sfa.LAUNCHES, fa.LAUNCHES)
+        got = dot_product_attention(q, k, v, fused, key_mask=mask.bool())
+        assert (sfa.LAUNCHES, fa.LAUNCHES) == (before[0], before[1] + 1)
+    finally:
+        attn.enable_sal_fused(saved)
+    torch.testing.assert_close(got, want, atol=TOL[q.dtype], rtol=TOL[q.dtype])
