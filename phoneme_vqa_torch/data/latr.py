@@ -6,7 +6,9 @@ dicts with ``image_id``, ``question`` and ``answer``; the OCR store is
 arrays are element-equal to the JAX package's.
 
 * question/answer are encoded as ``"<pad> " + text`` padded to max length
-  (the "<pad> " prefix doubles as the T5 decoder-start convention)
+  (the "<pad> " prefix doubles as the T5 decoder-start convention); an
+  ``answer_encoder`` (the customized and phoneme executors') encodes the
+  answers instead, as ids or as (T, 3) phoneme triples
 * OCR words (capped at ``max_ocr_element``) are tokenized twice, jointly
   and per word, to align subwords to words; each subword inherits its
   word's box as a 6-tuple (x0, y0, x1, y1, w, h)
@@ -73,6 +75,12 @@ def align_ocr_subwords(
     return ids, boxes, mask
 
 
+def label_array(rows, empty_shape) -> np.ndarray:
+    """Encoded answers as one int32 array: (N, T) ids, or (N, T, 3) phoneme
+    triples from the structured tokenizer's answer encoder."""
+    return np.asarray(rows, np.int32) if rows else np.zeros(empty_shape, np.int32)
+
+
 def join_ocr(qa_rows: Sequence[dict], ocr_store) -> List[dict]:
     """Inner join of QA rows with the OCR store on ``image_id``, in row order."""
     out = []
@@ -97,12 +105,13 @@ class LaTrDataset:
         max_ocr_length: int = 100,
         max_input_length: int = 30,
         max_output_length: int = 20,
+        answer_encoder=None,
     ):
         self.tokenizer = tokenizer
         rows = join_ocr(qa_rows, ocr_store)
         arrays = self._featurize(
             rows, tokenizer, max_ocr_element, max_ocr_length,
-            max_input_length, max_output_length,
+            max_input_length, max_output_length, answer_encoder,
         )
         image_ids = [r["image_id"] for r in rows]
         self.dataset = ArrayDataset(
@@ -113,15 +122,14 @@ class LaTrDataset:
 
     @staticmethod
     def _featurize(rows, tokenizer, max_ocr_element, max_ocr_length,
-                   max_input_length, max_output_length):
+                   max_input_length, max_output_length, answer_encoder=None):
         n = len(rows)
         input_ids = np.zeros((n, max_input_length), np.int32)
         src_mask = np.zeros((n, max_input_length), np.int32)
         ocr_ids = np.zeros((n, max_ocr_length), np.int32)
         ocr_mask = np.zeros((n, max_ocr_length), np.int32)
         coords = np.zeros((n, max_ocr_length, 6), np.int32)
-        label_ids = np.zeros((n, max_output_length), np.int32)
-        label_mask = np.zeros((n, max_output_length), np.int32)
+        label_rows, label_mask_rows = [], []
 
         for i, row in enumerate(rows):
             input_ids[i], src_mask[i] = encode_prefixed(
@@ -132,9 +140,13 @@ class LaTrDataset:
             )
             ocr_ids[i], ocr_mask[i] = o_ids, o_mask
             coords[i] = np.asarray(o_boxes, np.float64).astype(np.int32)
-            label_ids[i], label_mask[i] = encode_prefixed(
-                tokenizer, str(row["answer"]), max_output_length
+            answer = str(row["answer"])
+            a_ids, a_mask = (
+                encode_prefixed(tokenizer, answer, max_output_length) if answer_encoder is None
+                else answer_encoder(answer, max_output_length)
             )
+            label_rows.append(a_ids)
+            label_mask_rows.append(a_mask)
 
         return {
             "input_ids": input_ids,
@@ -142,8 +154,8 @@ class LaTrDataset:
             "tokenized_ocr": ocr_ids,
             "ocr_attention_mask": ocr_mask,
             "coordinates": coords,
-            "label_ids": label_ids,
-            "label_attention_mask": label_mask,
+            "label_ids": label_array(label_rows, (n, max_output_length)),
+            "label_attention_mask": label_array(label_mask_rows, (n, max_output_length)),
         }
 
     def __len__(self) -> int:

@@ -58,3 +58,47 @@ def greedy_decode(
     if with_scores:
         return out, sum_lp / count.clamp(min=1.0)
     return out
+
+
+def multi_head_greedy_decode(
+    step_fn,  # (tokens (B, C), cache, i) -> (tuple of C logits (B, V_c), cache)
+    cache,
+    batch_size: int,
+    max_length: int,
+    num_components: int,
+    bos_id: int,
+    eos_id: int,
+    pad_id: int,
+    device,
+    stop_component: int = 0,
+    with_scores: bool = False,
+):
+    """Greedy decode over component tuples (phoneme onset / rhyme / tone).
+
+    Each step emits one id per component, the argmax of each head; a row is
+    done when its ``stop_component`` (the onset) emits EOS, and emits pad in
+    every component from then on. Returns (B, max_length, C) int64;
+    ``with_scores=True`` also returns the (B,) f32 mean log-probability per
+    emitted component id (the mean runs over steps x C)."""
+    out = torch.full((batch_size, max_length, num_components), pad_id, dtype=torch.long,
+                     device=device)
+    out[:, 0, :] = bos_id
+    done = torch.zeros(batch_size, dtype=torch.bool, device=device)
+    sum_lp = torch.zeros(batch_size, dtype=torch.float32, device=device)
+    count = torch.zeros(batch_size, dtype=torch.float32, device=device)
+
+    for i in range(max_length - 1):
+        logits, cache = step_fn(out[:, i], cache, i)
+        nxt = torch.stack([l.argmax(dim=-1) for l in logits], dim=-1)
+        if with_scores:
+            lp = sum(chosen_logprob(l, nxt[:, c]) for c, l in enumerate(logits))
+            sum_lp += torch.where(done, 0.0, lp)
+            count += (~done).float() * len(logits)
+        nxt = torch.where(done[:, None], pad_id, nxt)
+        out[:, i + 1] = nxt
+        done |= nxt[:, stop_component] == eos_id
+        if bool(done.all()):
+            break
+    if with_scores:
+        return out, sum_lp / count.clamp(min=1.0)
+    return out

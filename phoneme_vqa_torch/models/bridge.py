@@ -9,7 +9,10 @@ from layout:
   (out, in, kh, kw); flax convolves NHWC and the port NCHW over the same
   row-by-row patch order
 * LayerNorm ``scale`` -> ``weight``; Embed ``embedding`` -> ``weight``
-  (so SaL's ``rel2d/rel1d/embedding`` -> ``rel2d.rel1d.weight``)
+  (so SaL's ``rel2d/rel1d/embedding`` -> ``rel2d.rel1d.weight``, and the
+  phoneme triple decoder's ``decoder/onset_embed/embedding`` ->
+  ``decoder.onset_embed.weight``; its ``shared_lm_head`` and three heads
+  are Dense layers like any other)
 * Dense ``bias``, RMSNorm ``weight``, ``rel_embedding`` (32, H),
   ``spatial/tables`` (6, 1024, d), ``cls_token`` and ``position_embeddings``
   as they are
@@ -73,7 +76,8 @@ def _torch_leaf(path: tuple, value: np.ndarray):
 
 
 def flax_to_state_dict(params, model: nn.Module) -> Dict[str, torch.Tensor]:
-    """Map a flax LaTr or SaL param tree onto ``model``'s parameter names.
+    """Map a flax param tree (any model of the port) onto ``model``'s
+    parameter names.
 
     Raises ``KeyError`` on a flax leaf with no counterpart, a shape that
     disagrees, or a port parameter that no flax leaf fills."""

@@ -20,6 +20,8 @@ residual branch, inside the FFN) draws from the T5 backbone's
 :class:`~phoneme_vqa_torch.models.t5.DropoutRNG`, which the trainer
 reseeds every step. Decoding uses a stacked (L, B, H, T, d) cache written in
 place, one position per layer and step, as ``T5Decoder.step`` does.
+:class:`DecoderStack` holds what the phoneme triple decoder
+(``models/phoneme.py``) shares with this one.
 """
 
 from __future__ import annotations
@@ -151,22 +153,19 @@ class DecoderLayer(nn.Module):
         return self.ln3(x + self._ffn(x))
 
 
-class CustomDecoder(nn.Module):
-    """Scaled token embedding + sinusoidal PE + post-LN decoder stack + LM
-    head. ``rng`` is the dropout stream it shares with the encoder."""
+class DecoderStack:
+    """What the custom and the phoneme triple decoders share (a mixin of
+    ``nn.Module`` subclasses with a ``cfg`` that has ``d_model``,
+    ``num_heads``, ``num_layers``, ``max_len`` and ``dtype``): the post-LN
+    layer stack over the encoder memory, its stacked cache, the sinusoidal
+    PE as a non-persistent buffer and the PE dropout. Each decoder embeds
+    its tokens and reads its heads itself."""
 
-    def __init__(self, cfg: CustomDecoderConfig, device=None,
-                 rng: Optional[DropoutRNG] = None):
-        super().__init__()
-        self.cfg = cfg
-        rng = rng or DropoutRNG()
-        self.embed = nn.Embedding(cfg.vocab_size, cfg.d_model, device=device,
-                                  dtype=torch.float32)
-        for i in range(cfg.num_layers):
-            self.add_module(f"layer_{i}", DecoderLayer(cfg, device, rng))
-        self.layers = [getattr(self, f"layer_{i}") for i in range(cfg.num_layers)]
-        self.lm_head = _dense(cfg.d_model, cfg.vocab_size, cfg, device)
-        self.pe_drop = Dropout(cfg.dropout_rate, rng)
+    def _add_stack(self, layer_cfg: CustomDecoderConfig, device, rng: DropoutRNG) -> None:
+        for i in range(layer_cfg.num_layers):
+            self.add_module(f"layer_{i}", DecoderLayer(layer_cfg, device, rng))
+        self.layers = [getattr(self, f"layer_{i}") for i in range(layer_cfg.num_layers)]
+        self.pe_drop = Dropout(layer_cfg.dropout_rate, rng)
         self.register_buffer("pe", self._pe_table(device), persistent=False)
 
     def _pe_table(self, device) -> torch.Tensor:
@@ -180,19 +179,20 @@ class CustomDecoder(nn.Module):
             self.pe = self._pe_table(self.pe.device)
         return self
 
-    def _embed(self, ids: torch.Tensor, offset: int = 0) -> torch.Tensor:
-        x = self.embed(ids) * math.sqrt(self.cfg.d_model)
-        return (x + self.pe[offset : offset + ids.shape[1]][None]).to(self.cfg.dtype)
+    def _with_pe(self, x: torch.Tensor, offset: int = 0) -> torch.Tensor:
+        """(B, T, d) f32 embeddings + the PE rows from ``offset``, in the
+        compute dtype."""
+        return (x + self.pe[offset : offset + x.shape[1]][None]).to(self.cfg.dtype)
 
-    def forward(self, tgt_ids, memory, memory_mask=None, tgt_keep_mask=None):
-        """Teacher-forced: (B, T) ids -> (B, T, V) f32 logits."""
+    def _run_stack(self, x, memory, memory_mask=None, tgt_keep_mask=None) -> torch.Tensor:
+        """Teacher-forced: PE dropout, then every layer."""
         memory_mask = None if memory_mask is None else memory_mask.bool()
         tgt_keep_mask = None if tgt_keep_mask is None else tgt_keep_mask.bool()
-        x = self.pe_drop(self._embed(tgt_ids))
+        x = self.pe_drop(x)
         memory = memory.to(self.cfg.dtype)
         for layer in self.layers:
             x = layer(x, memory, memory_mask, tgt_keep_mask)
-        return self.lm_head(x).float()
+        return x
 
     def init_cache(self, memory: torch.Tensor, max_len: int) -> Cache:
         """The stacked (L, B, H, T, d) self-attention cache and the stacked
@@ -208,12 +208,39 @@ class CustomDecoder(nn.Module):
             "cv": torch.stack([v for _, v in kv]),
         }
 
-    def step(self, tokens: torch.Tensor, cache: Cache, index: int, memory_mask=None):
-        """One decode step at position ``index``: tokens (B,) -> ((B, V) f32
-        logits, cache), the cache written in place."""
+    def _step_stack(self, x, cache: Cache, index: int, memory_mask=None) -> torch.Tensor:
+        """Every layer's decode step at position ``index``, the cache written
+        in place."""
         memory_mask = None if memory_mask is None else memory_mask.bool()
-        x = self._embed(tokens[:, None], offset=index)
         for l, layer in enumerate(self.layers):
             x = layer.step(x, cache["k"][l], cache["v"][l], cache["ck"][l], cache["cv"][l],
                            index, memory_mask)
+        return x
+
+
+class CustomDecoder(DecoderStack, nn.Module):
+    """Scaled token embedding + sinusoidal PE + post-LN decoder stack + LM
+    head. ``rng`` is the dropout stream it shares with the encoder."""
+
+    def __init__(self, cfg: CustomDecoderConfig, device=None,
+                 rng: Optional[DropoutRNG] = None):
+        super().__init__()
+        self.cfg = cfg
+        self.embed = nn.Embedding(cfg.vocab_size, cfg.d_model, device=device,
+                                  dtype=torch.float32)
+        self._add_stack(cfg, device, rng or DropoutRNG())
+        self.lm_head = _dense(cfg.d_model, cfg.vocab_size, cfg, device)
+
+    def _embed(self, ids: torch.Tensor, offset: int = 0) -> torch.Tensor:
+        return self._with_pe(self.embed(ids) * math.sqrt(self.cfg.d_model), offset)
+
+    def forward(self, tgt_ids, memory, memory_mask=None, tgt_keep_mask=None):
+        """Teacher-forced: (B, T) ids -> (B, T, V) f32 logits."""
+        x = self._run_stack(self._embed(tgt_ids), memory, memory_mask, tgt_keep_mask)
+        return self.lm_head(x).float()
+
+    def step(self, tokens: torch.Tensor, cache: Cache, index: int, memory_mask=None):
+        """One decode step at position ``index``: tokens (B,) -> ((B, V) f32
+        logits, cache), the cache written in place."""
+        x = self._step_stack(self._embed(tokens[:, None], offset=index), cache, index, memory_mask)
         return self.lm_head(x).float()[:, 0], cache

@@ -1,13 +1,15 @@
-"""CustomizedSaL: the SaL encoder with the custom post-LN answer decoder
-over a pluggable answer-tokenizer vocabulary (counterpart of
-``phoneme_vqa_tpu/models/customized.py``; CustomizedLaTr and
-CustomizedPreSTU are not ported yet).
+"""Customized{LaTr, PreSTU, SaL}: the stock fusion encoders with the custom
+post-LN answer decoder over a pluggable answer-tokenizer vocabulary
+(counterpart of ``phoneme_vqa_tpu/models/customized.py``).
 
 The backbone is encoder-only: ``t5`` holds the encoder and the shared
 embedding, and ``decoder`` is :class:`~.custom_decoder.CustomDecoder`,
-whose dropout draws from the backbone's stream. Generation is the same
-KV-cached greedy loop as the stock families, with the answer vocabulary's
-(bos, eos, pad) (:attr:`_CustomDecodeMixin.decode_token_ids`).
+whose dropout draws from the backbone's stream. :class:`_CustomDecodeMixin`
+works over any model with ``encode(batch) -> (encoder output, mask)``
+(``FusionModel`` for LaTr and PreSTU, ``SaLFusion``). The LaTr and PreSTU
+variants freeze their ViT. Generation is the same KV-cached greedy loop as
+the stock families, with the answer vocabulary's (bos, eos, pad)
+(:attr:`_CustomDecodeMixin.decode_token_ids`).
 """
 
 from __future__ import annotations
@@ -16,9 +18,15 @@ import dataclasses
 
 from ..utils.registry import MODEL_CONFIGS, MODELS
 from .custom_decoder import CustomDecoder, CustomDecoderConfig
-from .latr import t5_config_from_yaml
+from .latr import LaTr, LaTrConfig, t5_config_from_yaml, vit_config_from_yaml
+from .prestu import PreSTU
 from .sal import SaLConfig, SaLFusion
 from .t5 import T5Config
+
+
+@dataclasses.dataclass(frozen=True)
+class CustomizedLaTrConfig(LaTrConfig):
+    decoder: CustomDecoderConfig = dataclasses.field(default_factory=CustomDecoderConfig)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,6 +47,31 @@ def decoder_config_from_yaml(config, t5: T5Config, tgt_vocab_size: int, pad_id: 
         eos_id=eos_id,
         dtype=t5.dtype,
     )
+
+
+@MODEL_CONFIGS.register("CustomizedLaTr_config")
+class CustomizedLaTr_config:
+    """YAML Config -> CustomizedLaTrConfig (frozen ViT); the executor passes
+    the answer tokenizer's size and ids."""
+
+    def build(self, config, tgt_vocab_size: int = 1000, pad_id: int = 0, bos_id: int = 1,
+              eos_id: int = 2) -> CustomizedLaTrConfig:
+        t5 = t5_config_from_yaml(config)
+        return CustomizedLaTrConfig(
+            t5=t5,
+            vit=vit_config_from_yaml(config),
+            max_2d_position_embeddings=config.get("max_2d_position_embeddings", 1024),
+            freeze_vit=True,
+            decoder=decoder_config_from_yaml(config, t5, tgt_vocab_size, pad_id, bos_id,
+                                             eos_id),
+        )
+
+
+@MODEL_CONFIGS.register("CustomizedPreSTU_config")
+class CustomizedPreSTU_config(CustomizedLaTr_config):
+    """The same config for PreSTU (the ViT frozen, as the JAX package's
+    builder freezes it); PreSTU has no spatial stream, so
+    ``max_2d_position_embeddings`` goes unused."""
 
 
 @MODEL_CONFIGS.register("CustomizedSaL_config")
@@ -85,6 +118,20 @@ class _CustomDecodeMixin:
         """(bos, eos, pad) of the answer vocabulary, not the backbone's."""
         c = self.cfg.decoder
         return c.bos_id, c.eos_id, c.pad_id
+
+
+@MODELS.register("CustomizedLaTr")
+class CustomizedLaTr(_CustomDecodeMixin, LaTr):
+    def __init__(self, cfg: CustomizedLaTrConfig, device="cuda"):
+        super().__init__(cfg, device, t5_decoder=False)
+        self.decoder = CustomDecoder(cfg.decoder, self.device, rng=self.t5.dropout_rng)
+
+
+@MODELS.register("CustomizedPreSTU")
+class CustomizedPreSTU(_CustomDecodeMixin, PreSTU):
+    def __init__(self, cfg: CustomizedLaTrConfig, device="cuda"):
+        super().__init__(cfg, device, t5_decoder=False)
+        self.decoder = CustomDecoder(cfg.decoder, self.device, rng=self.t5.dropout_rng)
 
 
 @MODELS.register("CustomizedSaL")

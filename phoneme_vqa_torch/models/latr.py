@@ -6,10 +6,12 @@ T5-embed(ocr) + SpatialModule(coords), T5-embed(question)])`` with mask
 ``[ones(img), ocr_mask, src_mask]``, followed by a full T5 decoder and the
 tied LM head. The ViT is frozen (``LaTrConfig.freeze_vit``, as in the
 reference): it runs under ``torch.no_grad``, so no gradient reaches it, and
-the trainer gives it no optimizer state.
+the trainer gives it no optimizer state. :class:`FusionModel` is the part
+LaTr shares with PreSTU (``models/prestu.py``), whose ViT trains.
 
 Model surface: ``forward(batch, labels, label_mask)`` for teacher-forced
-logits, ``fuse(batch)``, ``encode_for_generate(batch, max_len)`` and
+logits, ``fuse(batch)``, ``encode(batch)`` (encoder output and mask, as
+``SaLFusion.encode``), ``encode_for_generate(batch, max_len)`` and
 ``decode_step(...)`` for greedy decoding. A batch is a dict of tensors on
 the model's device (:func:`to_device_batch`).
 """
@@ -23,6 +25,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..data.latr import LaTrDataset
 from ..utils.device import resolve_device
 from ..utils.registry import MODEL_CONFIGS, MODELS
 from .spatial import SpatialModule
@@ -100,20 +103,27 @@ def to_device_batch(batch: Dict[str, np.ndarray], device, keys=BATCH_KEYS):
     return {k: torch.from_numpy(np.asarray(batch[k])).to(device) for k in keys if k in batch}
 
 
-@MODELS.register("LaTr")
-class LaTr(nn.Module):
-    def __init__(self, cfg: LaTrConfig, device="cuda"):
+class FusionModel(nn.Module):
+    """The shared skeleton of the LaTr and PreSTU families: the T5 backbone,
+    the ViT and its projector; ``fuse`` (the subclass's) builds the encoder
+    input. ``t5_decoder`` builds the stock T5 decoder into ``t5`` (a model
+    with its own answer decoder passes False, as ``SaLFusion`` does). A
+    subclass names its inputs (``BATCH_KEYS``) and the dataset that
+    featurizes them (``DATASET``); the executors and the serving engine read
+    both from the model class."""
+
+    BATCH_KEYS: tuple = ()
+    DATASET: type
+
+    def __init__(self, cfg: LaTrConfig, device="cuda", t5_decoder: bool = True):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
         t5c = cfg.t5
-        self.t5 = T5(t5c, device)
+        self.t5 = T5(t5c, device, decoder=t5_decoder)
         self.vit = ViT(cfg.vit, device)
         self.visual_projector = nn.Linear(
             cfg.vit.hidden_size, t5c.d_model, device=device, dtype=t5c.dtype
-        )
-        self.spatial = SpatialModule(
-            cfg.max_2d_position_embeddings, t5c.d_model, t5c.dtype, device
         )
 
     @property
@@ -126,12 +136,47 @@ class LaTr(nn.Module):
 
     def _img_features(self, batch):
         """Projected image features from live pixels or from precomputed
-        ViT encodings (``vit_encodings``)."""
+        ViT encodings (``vit_encodings``). The ViT takes gradients only when
+        the model does not freeze it (``freeze_vit``: LaTr, the customized
+        and phoneme families; PreSTU trains it)."""
         if "vit_encodings" in batch:
             return self.visual_projector(batch["vit_encodings"].to(self.cfg.t5.dtype))
         with torch.set_grad_enabled(torch.is_grad_enabled() and not self.cfg.freeze_vit):
             encodings = self.vit(batch["pixel_values"])
         return self.visual_projector(encodings)
+
+    def fuse(self, batch):
+        raise NotImplementedError
+
+    def encode(self, batch):
+        """(encoder output, encoder mask) of a batch."""
+        embeds, enc_mask = self.fuse(batch)
+        return self.t5.encode(embeds, enc_mask), enc_mask
+
+    def forward(self, batch, labels, label_mask):
+        """Teacher-forced (B, T, V) f32 logits."""
+        enc_out, enc_mask = self.encode(batch)
+        return self.t5.decode(labels, enc_out, enc_mask, label_mask)
+
+    def encode_for_generate(self, batch, max_length: int):
+        enc_out, enc_mask = self.encode(batch)
+        cache, full_bias = self.t5.init_cache(enc_out, max_length)
+        return cache, full_bias, enc_mask
+
+    def decode_step(self, tokens, cache, index: int, full_bias, enc_mask):
+        return self.t5.decode_step(tokens, cache, index, full_bias, enc_mask)
+
+
+@MODELS.register("LaTr")
+class LaTr(FusionModel):
+    BATCH_KEYS = BATCH_KEYS
+    DATASET = LaTrDataset
+
+    def __init__(self, cfg: LaTrConfig, device="cuda", t5_decoder: bool = True):
+        super().__init__(cfg, device, t5_decoder)
+        self.spatial = SpatialModule(
+            cfg.max_2d_position_embeddings, cfg.t5.d_model, cfg.t5.dtype, self.device
+        )
 
     def fuse(self, batch):
         """[ViT patches | OCR embed + spatial | question] and its mask."""
@@ -148,21 +193,6 @@ class LaTr(nn.Module):
             dim=1,
         )
         return embeds, mask
-
-    def forward(self, batch, labels, label_mask):
-        """Teacher-forced (B, T, V) f32 logits."""
-        embeds, enc_mask = self.fuse(batch)
-        enc_out = self.t5.encode(embeds, enc_mask)
-        return self.t5.decode(labels, enc_out, enc_mask, label_mask)
-
-    def encode_for_generate(self, batch, max_length: int):
-        embeds, enc_mask = self.fuse(batch)
-        enc_out = self.t5.encode(embeds, enc_mask)
-        cache, full_bias = self.t5.init_cache(enc_out, max_length)
-        return cache, full_bias, enc_mask
-
-    def decode_step(self, tokens, cache, index: int, full_bias, enc_mask):
-        return self.t5.decode_step(tokens, cache, index, full_bias, enc_mask)
 
 
 def random_params(model: nn.Module, generator: torch.Generator) -> Dict[str, torch.Tensor]:
@@ -207,13 +237,15 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     return model
 
 
-def build_latr(config, device="cuda", seed: int = 0) -> LaTr:
-    """A LaTr from a YAML-style config with seeded random weights. Modules
-    are built on the meta device first, so no default init runs."""
+def build_latr(config, device="cuda", seed: int = 0, model_cls=None, cfg=None) -> FusionModel:
+    """A LaTr-family model (``model_cls``, default :class:`LaTr`; ``cfg``,
+    default ``LaTr_config().build(config)``; PreSTU and the customized and
+    phoneme models too) from a YAML-style config with seeded random weights.
+    Modules are built on the meta device first, so no default init runs."""
     device = resolve_device(device)
-    cfg = LaTr_config().build(config)
+    cfg = LaTr_config().build(config) if cfg is None else cfg
     with torch.device("meta"):
-        model = LaTr(cfg, device="meta")
+        model = (model_cls or LaTr)(cfg, device="meta")
     model = model.to_empty(device=device)
     generator = torch.Generator(device=device).manual_seed(seed)
     return init_random_(model, generator).eval()

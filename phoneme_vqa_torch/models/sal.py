@@ -99,6 +99,8 @@ class SaLFusion(nn.Module):
     encoder; subclasses add a decoder. ``t5_decoder`` builds the stock T5
     decoder into ``t5``."""
 
+    BATCH_KEYS = BATCH_KEYS
+
     def __init__(self, cfg: SaLConfig, device="cuda", t5_decoder: bool = True):
         super().__init__()
         device = resolve_device(device)

@@ -6,6 +6,7 @@ from .bpe import BPETokenizer
 from .byte import ByteTokenizer
 from .char import CharTokenizer
 from .phoneme_flat import PhonemeTokenizer
+from .phoneme_structured import StructuredPhonemeTokenizer
 
 __all__ = [
     "BPETokenizer",
@@ -13,5 +14,6 @@ __all__ = [
     "CharTokenizer",
     "FallbackSubwordTokenizer",
     "PhonemeTokenizer",
+    "StructuredPhonemeTokenizer",
     "load_backbone_tokenizer",
 ]

@@ -35,12 +35,13 @@ import torch
 from .. import evaluation
 from ..config import Config
 from ..data.loader import batch_iterator, num_batches
-from ..models.generate import make_generate_fn
+from ..models.generate import build_generate_fn
 from ..models.latr import to_device_batch
 from ..ops import attention as attn_mod
 from ..serving.engine import decode_rows
 from ..utils.device import resolve_device
 from ..utils.logger import get_logger
+from ..utils.registry import MODELS
 from .optim import cross_entropy_loss
 from .state import bind_params, compute_copies, master_grads, refresh_compute_weights_
 
@@ -100,7 +101,6 @@ class BaseExecutor:
         "qa_train_path", "qa_val_path",
         "MODEL_CLASS", "MODEL_MOD_CONFIG_CLASS",
     )
-    BATCH_KEYS: tuple = ()
 
     def __init__(self, config, mode: str = "train", evaltype: str = "last",
                  predicttype: str = "best", device="cuda"):
@@ -126,6 +126,13 @@ class BaseExecutor:
             self._build_model()
         else:
             raise ValueError(f"unknown mode {mode!r}")
+
+    @property
+    def model_class(self):
+        """The configured model's class (``MODEL_CLASS``): it names the
+        model's inputs (``BATCH_KEYS``) and, in the LaTr / PreSTU families,
+        the dataset that featurizes them (``DATASET``)."""
+        return MODELS.get(self.config.MODEL_CLASS)
 
     # -- subclass hooks -------------------------------------------------------
 
@@ -364,10 +371,10 @@ class BaseExecutor:
         return lambda name: name.split(".", 1)[0] == "vit"
 
     def _model_batch(self, batch: dict) -> dict:
-        return {k: batch[k] for k in self.BATCH_KEYS}
+        return {k: batch[k] for k in self.model_class.BATCH_KEYS}
 
     def _to_device(self, batch: dict) -> dict:
-        return to_device_batch(batch, self.device, self.BATCH_KEYS + LABEL_KEYS)
+        return to_device_batch(batch, self.device, self.model_class.BATCH_KEYS + LABEL_KEYS)
 
     def _loss_from_batch(self, batch) -> torch.Tensor:
         """Teacher-forced loss of a device batch in the model's current mode:
@@ -440,13 +447,19 @@ class BaseExecutor:
         ``_inference_params``."""
         self.model.eval()
         if max_length not in self._generate_fns:
-            self._generate_fns[max_length] = make_generate_fn(self.model, max_length)
+            self._generate_fns[max_length] = self._build_generate_fn(max_length)
         generate = self._generate_fns[max_length]
         rows: List = []
         for batch, n_valid in batch_iterator(dataset, batch_size, pad_final=True):
-            out = generate(to_device_batch(batch, self.device, self.BATCH_KEYS))
+            out = generate(to_device_batch(batch, self.device, self.model_class.BATCH_KEYS))
             rows.extend(out[:n_valid].tolist())
         return self._decode_rows(rows)
+
+    def _build_generate_fn(self, max_length: int):
+        """The greedy generate ``infer`` decodes with, chosen by the model:
+        token rows, or the phoneme triple decoder's (onset, rhyme, tone)
+        rows (``models.generate.build_generate_fn``)."""
+        return build_generate_fn(self.model, max_length)
 
     def _decode_rows(self, rows) -> List[str]:
         """Cut [start, ..., eos] to the tokens between, then detokenize with

@@ -1,7 +1,7 @@
-"""The CustomizedSaL executor (counterpart of
-``phoneme_vqa_tpu/train/customized_executor.py``; the LaTr and PreSTU
-variants are not ported yet): a pluggable answer tokenizer, the custom
-decoder head, a LinearLR warmup and encoder-freeze epochs.
+"""The Customized{LaTr, PreSTU, SaL} executors (counterpart of
+``phoneme_vqa_tpu/train/customized_executor.py``): a pluggable answer
+tokenizer, the custom decoder head, a LinearLR warmup and encoder-freeze
+epochs.
 
 * ``DecodeTokenizer`` names the answer tokenizer (``TOKENIZERS``); a BPE
   tokenizer is trained on the train + val answers and saved to
@@ -25,7 +25,9 @@ from ..models import customized  # noqa: F401  (registers the model and its conf
 from ..serving.engine import decode_answer_rows
 from ..utils.logger import get_logger
 from ..utils.registry import EXECUTORS, TOKENIZERS
+from .latr_executor import LaTrExecutor
 from .optim import linear_warmup_schedule
+from .prestu_executor import PreSTUExecutor
 from .sal_executor import SaLExecutor
 
 log = get_logger(__name__)
@@ -66,16 +68,22 @@ class _CustomizedMixin:
     def _loss_pad_id(self) -> int:
         return self.decode_tokenizer.pad_id
 
-    def _build_model_config(self, cfg_builder):
+    def _check_greedy(self) -> None:
         c = self.config
         if not c.get("isgreedy", True) and int(c.get("num_beam", 1) or 1) > 1:
             raise NotImplementedError("beam decode (isgreedy: false, num_beam > 1) is not "
                                       "ported yet (ROADMAP A11)")
+
+    def _decoder_ids(self) -> dict:
+        """The answer vocabulary's size and ids, as the config builders take
+        them."""
         tok = self.decode_tokenizer
-        return cfg_builder.build(
-            c, tgt_vocab_size=len(tok), pad_id=tok.pad_id, bos_id=tok.bos_id,
-            eos_id=tok.eos_id, new_token_embedding_size=self._new_vocab_size(),
-        )
+        return dict(tgt_vocab_size=len(tok), pad_id=tok.pad_id, bos_id=tok.bos_id,
+                    eos_id=tok.eos_id)
+
+    def _build_model_config(self, cfg_builder):
+        self._check_greedy()
+        return cfg_builder.build(self.config, **self._decoder_ids())
 
     def _decode_rows(self, rows) -> List[str]:
         return decode_answer_rows(self.decode_tokenizer, rows)
@@ -104,6 +112,21 @@ class _CustomizedMixin:
         super().apply_gradients()
 
 
+@EXECUTORS.register("CustomizedLaTr_Executor")
+class CustomizedLaTrExecutor(_CustomizedMixin, LaTrExecutor):
+    pass
+
+
+@EXECUTORS.register("CustomizedPreSTU_Executor")
+class CustomizedPreSTUExecutor(_CustomizedMixin, PreSTUExecutor):
+    pass
+
+
 @EXECUTORS.register("CustomizedSaL_Executor")
 class CustomizedSaLExecutor(_CustomizedMixin, SaLExecutor):
-    pass
+    def _build_model_config(self, cfg_builder):
+        """The SaL builder also takes the backbone tokenizer's length (the
+        ``<c>`` context token added)."""
+        self._check_greedy()
+        return cfg_builder.build(self.config, **self._decoder_ids(),
+                                 new_token_embedding_size=self._new_vocab_size())

@@ -2,7 +2,8 @@
 
 The generic machinery (train step, greedy generate, metric eval,
 checkpoints) lives in :class:`BaseExecutor`; this class binds the LaTr
-featurization, the model batch keys and the training properties. QA CSVs
+family's feature stores and training properties, and featurizes with the
+model class's ``DATASET`` (LaTr's, or PreSTU's for that family). QA CSVs
 are read with the standard library (``data.synthetic.read_qa_csv``): the
 card machine has no pandas.
 """
@@ -12,13 +13,12 @@ from __future__ import annotations
 import torch
 
 from ..data.adapters import textlayout_ocr_adapt
-from ..data.latr import LaTrDataset
 from ..data.loader import num_batches
 from ..data.synthetic import read_qa_csv
 from ..models import latr as latr_mod
 from ..tokenizers.backbone import load_backbone_tokenizer
 from ..utils.logger import get_logger
-from ..utils.registry import EXECUTORS, MODEL_CONFIGS, MODELS
+from ..utils.registry import EXECUTORS, MODEL_CONFIGS
 from .base_executor import BaseExecutor
 from .checkpoint import CheckpointManager
 from .optim import (
@@ -40,17 +40,22 @@ class LaTrExecutor(BaseExecutor):
         "ocr_path", "base_img_path", "max_ocr_element", "max_ocr_length",
         "backbone_name",
     )
-    BATCH_KEYS = latr_mod.BATCH_KEYS
 
     # -- data ------------------------------------------------------------------
 
     def _make_dataset(self, qa_rows, ocr_store):
         c = self.config
-        return LaTrDataset(
+        return self.model_class.DATASET(
             qa_rows, ocr_store, self.tokenizer, c.base_img_path,
             max_ocr_element=c.max_ocr_element, max_ocr_length=c.max_ocr_length,
             max_input_length=c.max_q_length, max_output_length=c.max_a_length,
+            answer_encoder=self._answer_encoder(),
         ).dataset
+
+    def _answer_encoder(self):
+        """None: answers are encoded by the backbone tokenizer (the
+        customized and phoneme executors encode them with their own)."""
+        return None
 
     def _create_tokenizers(self):
         self.tokenizer = load_backbone_tokenizer(
@@ -100,9 +105,8 @@ class LaTrExecutor(BaseExecutor):
         log.info("# Building model architecture ...")
         self.model_config = self._build_model_config(
             MODEL_CONFIGS.get(self.config.MODEL_MOD_CONFIG_CLASS)())
-        model_cls = MODELS.get(self.config.MODEL_CLASS)
         with torch.device("meta"):
-            model = model_cls(self.model_config, device="meta")
+            model = self.model_class(self.model_config, device="meta")
         self.model = model.to_empty(device=self.device)
         generator = torch.Generator(device=self.device).manual_seed(self.config.get("SEED", 13))
         params = bind_params(self.model, latr_mod.random_params(self.model, generator))

@@ -9,7 +9,6 @@ from __future__ import annotations
 
 from ..data.adapters import textlayout_obj_adapt, textlayout_ocr_adapt
 from ..data.sal import SaLDataset
-from ..models import sal as sal_mod
 from ..tokenizers.backbone import load_backbone_tokenizer
 from ..utils.registry import EXECUTORS
 from .base_executor import BaseExecutor
@@ -23,7 +22,6 @@ class SaLExecutor(LaTrExecutor):
         "max_ocr_element", "max_ocr_length", "max_obj_element",
         "max_obj_length", "backbone_name",
     )
-    BATCH_KEYS = sal_mod.BATCH_KEYS
 
     def _create_tokenizers(self):
         self.tokenizer = load_backbone_tokenizer(
@@ -33,10 +31,6 @@ class SaLExecutor(LaTrExecutor):
 
     def _new_vocab_size(self) -> int:
         return len(self.tokenizer)
-
-    def _answer_encoder(self):
-        """None: answers are encoded by the backbone tokenizer."""
-        return None
 
     def _build_model_config(self, cfg_builder):
         return cfg_builder.build(self.config, self._new_vocab_size())

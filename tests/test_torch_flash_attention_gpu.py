@@ -172,15 +172,25 @@ PHONEME_SAL_ROLES = {
 }
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("role", list(PHONEME_SAL_ROLES))
-def test_phoneme_sal_training_roles_through_the_function(cuda, dtype, role):
-    """Each role through the dispatch under grad: one launch inside
+# the attention-kernel roles of the PhonemeLaTr / PreSTU family's train steps
+# (B and H cut): the triple / custom decoder's self-attention (127 x 127,
+# causal, scale 1/8, the answers' key mask) and cross-attention (127 x 327,
+# scale, key mask), and the ViT under gradients (PreSTU trains it: 197 x 197,
+# scale 1/8, no mask)
+LATR_FAMILY_ROLES = {
+    "triple_decoder_self": (127, 127, True, 64**-0.5, False, True),
+    "triple_decoder_cross": (127, 327, False, 64**-0.5, False, True),
+    "vit_under_gradients": (197, 197, False, 64**-0.5, False, False),
+}
+
+
+def _role_through_the_function(cuda, dtype, lq, lk, causal, scale, with_bias, with_mask=True):
+    """A role through the dispatch under grad: one launch inside
     ``FusedAttentionFn``, the forward within the kernel's tolerance of the
     plain path and every gradient equal to its (the recompute)."""
-    lq, lk, causal, scale, with_bias = PHONEME_SAL_ROLES[role]
     q, k, v, bias, mask = _inputs(4, 12, lq, lk, 64, dtype, cuda, seed=5)
     mask[-1] = 1
+    mask = mask.bool() if with_mask else None
     leaves = [t.detach().requires_grad_() for t in _as_model_views(q, k, v)]
     if with_bias:
         leaves.append(bias.detach().clone().requires_grad_())
@@ -188,7 +198,7 @@ def test_phoneme_sal_training_roles_through_the_function(cuda, dtype, role):
 
     def grads(attention):
         b = leaves[3] if with_bias else None
-        out = attention(*leaves[:3], b, mask.bool(), causal, scale)
+        out = attention(*leaves[:3], b, mask, causal, scale)
         return out, torch.autograd.grad((out.float() * w).sum(), leaves)
 
     before = fa.LAUNCHES
@@ -199,3 +209,15 @@ def test_phoneme_sal_training_roles_through_the_function(cuda, dtype, role):
     for g, ref in zip(got, want):
         assert g is not None and g.abs().max() > 0
         torch.testing.assert_close(g, ref, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("role", list(PHONEME_SAL_ROLES))
+def test_phoneme_sal_training_roles_through_the_function(cuda, dtype, role):
+    _role_through_the_function(cuda, dtype, *PHONEME_SAL_ROLES[role])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("role", list(LATR_FAMILY_ROLES))
+def test_latr_family_training_roles_through_the_function(cuda, dtype, role):
+    _role_through_the_function(cuda, dtype, *LATR_FAMILY_ROLES[role])

@@ -120,6 +120,43 @@ def test_attention_function_grads_at_cross_lengths(monkeypatch):
         np.testing.assert_allclose(a, b_, atol=TOL, rtol=TOL)
 
 
+def _answer_mask(b, lk, seed):
+    """A key mask of answer prefixes: row r keeps its first n_r keys."""
+    lens = np.random.RandomState(seed).randint(2, lk, b)
+    lens[0] = lk
+    return (np.arange(lk)[None] < lens[:, None]).astype(np.int32)
+
+
+# the attention roles of the PhonemeLaTr / PreSTU family's train steps, cut in
+# width: (b, h, lq, lk, d, causal, scale, key mask)
+NEW_ROLES = {
+    # the triple / custom decoder's self-attention: causal, 1/sqrt(d), answers' mask
+    "decoder_self": (2, 3, 19, 19, 8, True, 8**-0.5, _answer_mask(2, 19, 5)),
+    # its cross-attention over the encoder, the encoder's mask
+    "decoder_cross": (2, 3, 19, 29, 8, False, 8**-0.5, "random"),
+    # the ViT under gradients (PreSTU trains it): 1/sqrt(d), no mask, no bias
+    "vit": (2, 3, 17, 17, 8, False, 8**-0.5, None),
+}
+
+
+@pytest.mark.parametrize("role", list(NEW_ROLES))
+def test_attention_function_grads_in_the_phoneme_and_prestu_roles(monkeypatch, role):
+    b, h, lq, lk, d, causal, scale, mask = NEW_ROLES[role]
+    q, k, v, _, random_mask, w = _inputs(b, h, lq, lk, d, seed=6)
+    mask = random_mask if isinstance(mask, str) else mask
+    want = _jax_flash_grads(q, k, v, None, mask, causal, scale, w)
+    launcher = _CountingLauncher(t_attn.reference_attention)
+    monkeypatch.setattr(t_flash, "fused_attention", launcher)
+    t_mask = None if mask is None else torch.from_numpy(mask)
+    got = _torch_grads(lambda q_, k_, v_: t_attn.FusedAttentionFn.apply(q_, k_, v_, None, t_mask,
+                                                                         causal, scale),
+                       (q, k, v), w)
+    assert launcher.calls == 1
+    for name, a, b_ in zip(("dq", "dk", "dv"), got, want):
+        assert np.abs(a).max() > 0, name
+        np.testing.assert_allclose(a, b_, atol=TOL, rtol=TOL, err_msg=name)
+
+
 def test_relative_bias_gradient_reaches_its_table_through_the_padded_rows(monkeypatch):
     """``RelativeBias`` hands the kernel a view of row-padded storage (a
     ``copy_`` into it); the Function's dbias must still reach
