@@ -109,6 +109,27 @@ Phases (any failure exits non-zero; nothing is caught and carried past):
     frozen: no optimizer state, unmoved): the first counted, 5 timed
 9d. one f32 PreSTU train step (batch 4) kernels vs plain, ViT gradients
     included
+10. beam search (num_beam 4) through the executors' generate, on the
+    fixture's first 32 rows: PhonemeLaTr-base (20 answer triples, 24
+    attention launches a batch) and PhonemeSaL-base (40 ids, 12 SaL
+    launches); a beam of one gives greedy's rows; in f32 the beam through
+    the kernels gives the plain path's rows (but at the beam's near-ties)
+    and scores within 1e-4; ms a batch and peak memory against greedy's,
+    the rows whose score beats greedy's, the profiler's busy share
+11. LaTr-base with SPEC_DECODE 4 (B=32): in f32 one decode_step_k window
+    equals four one-token steps (1e-4 relative); oracle drafts (greedy's
+    own rows) take one trip a window; prompt-lookup speculative decoding
+    through the executor gives greedy's rows in f32 and in bf16 (but at
+    near-ties), 24 launches a batch; trips, acceptance, ms a batch against
+    greedy's
+12. EVAL_CONTINUOUS (the slot-refill pool decode, EVAL_SLOTS 32) through
+    the LaTr-base and PhonemeLaTr-base executors' infer over 64 rows:
+    answers identical to the batch decode's in f32, rows in bf16 (but at
+    near-ties), 24 launches a prefilled batch; ms against the batch path
+13. LaTr-base SAMPLE: TEMPERATURE 0 and TOP_K 1 give greedy's tokens, one
+    SEED draws the same tokens, two calls draw others, TOP_K 5 draws lie in
+    each step's five highest logits; PREDICT_SCORES through predict() gives
+    confidences within 1e-6 of exp(greedy's scores)
 
 Prints the run's total seconds, a {"kernels": [...]} line, the card line, and last
 {"ok": true, "device": {...}}. Needs the repo's phoneme_vqa_torch package;
@@ -138,7 +159,9 @@ from phoneme_vqa_torch.data import synthetic  # noqa: E402
 from phoneme_vqa_torch.data.adapters import textlayout_obj_adapt  # noqa: E402
 from phoneme_vqa_torch.data.adapters import textlayout_ocr_adapt  # noqa: E402
 from phoneme_vqa_torch.data.loader import batch_iterator  # noqa: E402
+from phoneme_vqa_torch.decode import beam as beam_mod  # noqa: E402
 from phoneme_vqa_torch.decode.greedy import greedy_decode, multi_head_greedy_decode  # noqa: E402
+from phoneme_vqa_torch.decode.speculative import speculative_greedy_decode  # noqa: E402
 from phoneme_vqa_torch.models import custom_decoder as custom_decoder_mod  # noqa: E402
 from phoneme_vqa_torch.models import customized as customized_mod  # noqa: E402
 from phoneme_vqa_torch.models import latr as latr_mod  # noqa: E402
@@ -153,7 +176,9 @@ from phoneme_vqa_torch.ops import flash_attention as fa  # noqa: E402
 from phoneme_vqa_torch.ops import layout  # noqa: E402
 from phoneme_vqa_torch.ops import sal_fused_attention as sfa  # noqa: E402
 from phoneme_vqa_torch.serving import SaLInputs, ServingEngine, featurize_requests  # noqa: E402
-from phoneme_vqa_torch.models.generate import decode_token_ids  # noqa: E402
+from phoneme_vqa_torch.models.generate import build_generate_fn, decode_token_ids  # noqa: E402
+from phoneme_vqa_torch.models.generate import make_beam_generate_fn  # noqa: E402
+from phoneme_vqa_torch.models.generate import make_multi_head_beam_generate_fn  # noqa: E402
 from phoneme_vqa_torch.phonology.analyze import CODAS, NUCLEI, ONSETS, TONE_VI  # noqa: E402
 from phoneme_vqa_torch.phonology.analyze import is_vietnamese_3  # noqa: E402
 from phoneme_vqa_torch.phonology.compose import compose_word  # noqa: E402
@@ -785,6 +810,9 @@ def profile_generate(generate, tb, wall_ms: float) -> dict:
     busy_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
     ours = [e for e in kernels if "attn::attention_" in e.key]  # both ported kernels
+    # row gathers and index kernels: the beam reorder (index_select), take
+    # and gather of the decode loops
+    gathers = [e for e in kernels if re.search(r"index|gather", e.key, re.IGNORECASE)]
     return {
         "profiled_wall_ms": wall_us / 1e3,
         "device_busy_ms": busy_us / 1e3,
@@ -792,6 +820,8 @@ def profile_generate(generate, tb, wall_ms: float) -> dict:
         "device_kernel_launches": sum(e.count for e in kernels),
         "attention_kernels_ms": sum(e.self_device_time_total for e in ours) / 1e3,
         "attention_kernel_launches": sum(e.count for e in ours),
+        "gather_index_kernels_ms": sum(e.self_device_time_total for e in gathers) / 1e3,
+        "gather_index_kernel_launches": sum(e.count for e in gathers),
         "top_kernels_ms": {e.key[:90]: e.self_device_time_total / 1e3 for e in top},
     }
 
@@ -826,6 +856,32 @@ def _greedy_with_logits(model, tb, max_answer):
         out = multi_head_greedy_decode(step, cache, enc_mask.shape[0], max_answer, components,
                                        *decode_token_ids(model), DEVICE)
     return out, seen
+
+
+def tie_parted(phase, rows, ref_rows, ref_seen, offset=0, margin_allowed=TIE_MARGIN):
+    """Greedy ``rows`` against ``ref_rows``: identical, except that a row may
+    part where the reference's top-2 logits at that step lie within
+    ``margin_allowed`` (in every head that parted). ``ref_seen[i]``: the
+    reference step i's logits, a tuple of heads, for the rows from
+    ``offset`` on. Returns (rows parted, the largest margin at a parting)."""
+    parted, worst_margin = 0, 0.0
+    for r, (kr, pr) in enumerate(zip(rows, ref_rows)):
+        for i, (a, b) in enumerate(zip(kr, pr)):
+            if a != b:
+                heads = [c for c, (x, y) in enumerate(zip(a, b)) if x != y] \
+                    if isinstance(a, list) else [0]
+                margin = 0.0
+                for c in heads:
+                    top2 = torch.topk(ref_seen[i - 1][c][offset + r], 2).values
+                    margin = max(margin, float(top2[0] - top2[1]))
+                if margin > margin_allowed:
+                    raise AssertionError(f"{phase}: row {offset + r} step {i} token {a} != {b}, "
+                                         f"reference top-2 margin {margin} (allowed "
+                                         f"{margin_allowed})")
+                parted += 1
+                worst_margin = max(worst_margin, margin)
+                break
+    return parted, worst_margin
 
 
 ATTENTION_USERS = (t5_mod, vit_mod, custom_decoder_mod)  # modules that call the dispatch
@@ -882,25 +938,8 @@ def check_end_to_end_f32(phase, model, tb, want_launches: dict,
     for k, p in zip(k_logits, p_logits):
         torch.testing.assert_close(k, p, atol=LOGITS_TOL, rtol=LOGITS_TOL)
 
-    # tokens identical; a row may part only where the plain path's top-2
-    # logits at that step lie within TIE_MARGIN (in every head that parted)
-    k_rows, p_rows = k_out.tolist(), p_out.tolist()
-    parted, worst_margin = 0, 0.0
-    for r, (kr, pr) in enumerate(zip(k_rows, p_rows)):
-        for i, (a, b) in enumerate(zip(kr, pr)):
-            if a != b:
-                heads = [c for c, (x, y) in enumerate(zip(a, b)) if x != y] \
-                    if isinstance(a, list) else [0]
-                margin = 0.0
-                for c in heads:
-                    top2 = torch.topk(p_seen[i - 1][c][r], 2).values
-                    margin = max(margin, float(top2[0] - top2[1]))
-                if margin > TIE_MARGIN:
-                    raise AssertionError(
-                        f"{phase}: row {r} step {i} token {a} != {b}, plain top-2 margin {margin}")
-                parted += 1
-                worst_margin = max(worst_margin, margin)
-                break
+    k_rows = k_out.tolist()
+    parted, worst_margin = tie_parted(phase, k_rows, p_out.tolist(), p_seen)
     log(f"{phase}: f32 teacher-forced logits kernels vs plain max |err| {logits_err:.3e} "
         f"(tol {LOGITS_TOL}); greedy rows identical {BATCH - parted}/{BATCH}, parted rows "
         f"{parted} (largest plain top-2 margin at a parting {worst_margin:.3e}, allowed "
@@ -1810,6 +1849,435 @@ def train_steps(phase, title, ex_cls, config, per_step: dict, vit_trains: bool) 
     return out
 
 
+# -- phases 10-13: the decode variants ----------------------------------------
+
+SPEC_K = 4  # SPEC_DECODE of phase 11
+NUM_BEAM = 4  # configs/phonemelatr.yaml, phonemesal.yaml num_beam
+VARIANT_ROWS = 2 * BATCH  # phases 10-13 decode the fixture's first 64 training rows
+
+
+def variant_rows(ex):
+    """The first VARIANT_ROWS rows of the fixture's training split,
+    featurized by the executor as its eval data is."""
+    rows = synthetic.read_qa_csv(ex.config.qa_train_path)[:VARIANT_ROWS]
+    return ex._make_dataset(rows, *ex._adapt_frames())
+
+
+def first_device_batch(ex, dataset):
+    batch, _ = next(batch_iterator(dataset, BATCH))
+    return ex._device_batch(batch)
+
+
+def paired_ms(fn, ref, *args, rounds=3):
+    """Host-clock ms of ``fn(*args)`` and ``ref(*args)``, each ended by a
+    synchronize, taken in turns (fn, ref, ref, fn) ``rounds`` times after a
+    warm-up call of each, so host drift falls on both: (median ms of fn,
+    median ms of ref)."""
+    times = {fn: [], ref: []}
+    for f in (fn, ref):
+        f(*args)
+    torch.cuda.synchronize()
+    for _ in range(rounds):
+        for f in (fn, ref, ref, fn):
+            t0 = time.perf_counter()
+            f(*args)
+            torch.cuda.synchronize()
+            times[f].append(1e3 * (time.perf_counter() - t0))
+    return tuple(sorted(times[f])[len(times[f]) // 2] for f in (fn, ref))
+
+
+def counted(phase, fn, *args, want: dict):
+    """``fn(*args)`` with every kernel's launch count set to 0 just before
+    and read, and held to ``want``, just after."""
+    reset_launches()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    check_launches(phase, launches(), want)
+    return out
+
+
+def greedy_recorded(model, tb, max_answer, with_scores=False):
+    """Greedy rows (and scores) of ``tb`` and every step's logits, through
+    ``build_generate_fn``."""
+    seen = []
+    step = model.decode_step
+
+    def recording(tokens, cache, i, *args):
+        logits, cache = step(tokens, cache, i, *args)
+        seen.append(logits if isinstance(logits, tuple) else (logits,))
+        return logits, cache
+
+    model.decode_step = recording
+    try:
+        out = build_generate_fn(model, max_answer, with_scores)(tb)
+    finally:
+        del model.decode_step
+    return out, seen
+
+
+def step_k_logit_gap(model, tb, rows, seen, k) -> float:
+    """The largest |logit| difference between ``decode_step_k`` windows of
+    ``k`` tokens and the one-token steps (``seen``) on the same prefixes
+    (greedy's ``rows``, teacher-forced): what rounding alone moves a logit
+    by between the two step functions. In bf16 a greedy row may part from
+    the other path's where its top-2 margin is within twice this gap."""
+    n = rows.shape[1] - 1
+    gap = 0.0
+    with torch.inference_mode():
+        cache, bias, mask = model.encode_for_generate(tb, rows.shape[1])
+        for start in range(0, n, k):
+            kk = min(k, n - start)
+            pos = torch.full((rows.shape[0],), start, dtype=torch.long, device=rows.device)
+            logits, cache = model.decode_step_k(rows[:, start:start + kk], cache, pos, bias, mask)
+            heads = logits if isinstance(logits, tuple) else (logits,)
+            for j in range(kk):
+                for c, head in enumerate(heads):
+                    gap = max(gap, float((head[:, j] - seen[start + j][c]).abs().max()))
+    return gap
+
+
+def beam_generate(model, max_answer, num_beams, with_scores=True):
+    """The beam generate at any width, one included (``build_generate_fn``
+    takes a width of one as greedy)."""
+    if getattr(model, "decode_components", 1) == 1:
+        return make_beam_generate_fn(model, max_answer, num_beams, with_scores)
+    return make_multi_head_beam_generate_fn(model, max_answer, num_beams,
+                                            *decode_token_ids(model), with_scores=with_scores)
+
+
+class beam_gaps:
+    """Within the block, the beam search's top-K choices record, for each
+    batch row, the smallest gap between adjacent candidates among the top
+    K+1 of every choice (both candidates finite, above NEG/2): the beam's
+    near-ties."""
+
+    def __enter__(self):
+        self.saved, self.gap = beam_mod.top_k_stable, None
+
+        def recorded(x, k):
+            vals = torch.sort(x, dim=-1, descending=True, stable=True).values[..., : k + 1]
+            finite = vals > beam_mod.NEG / 2
+            d = torch.where(finite[..., 1:], vals[..., :-1] - vals[..., 1:], torch.inf)
+            d = d.reshape(x.shape[0], -1).amin(dim=1)
+            self.gap = d if self.gap is None else torch.minimum(self.gap, d)
+            return self.saved(x, k)
+
+        beam_mod.top_k_stable = recorded
+        return self
+
+    def __exit__(self, *exc):
+        beam_mod.top_k_stable = self.saved
+
+
+def beam_phase(title, make_ex, max_answer, per_batch: dict) -> dict:
+    """Phase 10 for one model (see the module docstring). ``make_ex(dtype)``:
+    the executor with ``isgreedy: false, num_beam: 4``."""
+    phase = "phase 10"
+    ex = make_ex("bfloat16")
+    tb = first_device_batch(ex, variant_rows(ex))
+    beam = ex._get_generate_fn(max_answer, True)
+    rows, scores = counted(f"{phase} {title} beam", beam, tb, want=per_batch)
+    if not torch.isfinite(scores).all():
+        raise AssertionError(f"{phase}: {title}: non-finite beam scores")
+    greedy_fn = build_generate_fn(ex.model, max_answer, True)
+    beam_ms, greedy_ms = paired_ms(beam, greedy_fn, tb)
+    torch.cuda.reset_peak_memory_stats()
+    beam(tb)
+    beam_peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    greedy_fn(tb)
+    greedy_peak = torch.cuda.max_memory_allocated() / 1e9
+    (g_rows, g_scores), g_seen = greedy_recorded(ex.model, tb, max_answer, True)
+    one_rows, _ = beam_generate(ex.model, max_answer, 1)(tb)
+    one_parted, _ = tie_parted(f"{phase} {title} beam of one", one_rows.tolist(), g_rows.tolist(),
+                               g_seen)
+    beat = int((scores > g_scores).sum())
+    profiled = profile_generate(beam, tb, beam_ms)
+    del ex
+    torch.cuda.empty_cache()
+
+    # f32: beam through the kernels against beam through the plain path
+    ex = make_ex("float32")
+    beam = ex._get_generate_fn(max_answer, True)
+    tb = first_device_batch(ex, variant_rows(ex))
+    k_rows, k_scores = counted(f"{phase} {title} f32 beam", beam, tb, want=per_batch)
+    with attention_replaced(plain_attention), beam_gaps() as gaps:
+        p_rows, p_scores = counted(f"{phase} {title} f32 plain beam", beam, tb,
+                                   want={name: 0 for name in KERNELS})
+    same = (k_rows == p_rows).reshape(BATCH, -1).all(dim=1)
+    parted = int((~same).sum())
+    if parted and float(gaps.gap[~same].max()) > TIE_MARGIN:
+        raise AssertionError(f"{phase}: {title}: f32 beam rows part from the plain path's away "
+                             f"from a near-tie (gaps {gaps.gap[~same].tolist()})")
+    score_err = float((k_scores - p_scores)[same].abs().max())
+    if score_err > 1e-4:
+        raise AssertionError(f"{phase}: {title}: f32 beam scores {score_err:.3e} from plain")
+    del ex
+    torch.cuda.empty_cache()
+    out = {"ms_per_batch": beam_ms, "greedy_ms_per_batch": greedy_ms,
+           "peak_memory_gb": beam_peak, "greedy_peak_memory_gb": greedy_peak,
+           "rows_beating_greedy_score": beat, "beam_of_one_rows_parted": one_parted,
+           "f32_rows_parted": parted, "f32_score_max_abs_err": score_err,
+           "launches_per_batch": per_batch, **profiled}
+    log(f"{phase}: {title} beam {NUM_BEAM} at B={BATCH} (bf16, {card_line()}): {beam_ms:.3f} "
+        f"ms/batch against "
+        f"greedy {greedy_ms:.3f}; peak {beam_peak:.2f} GB against {greedy_peak:.2f}; "
+        f"{beat}/{BATCH} rows beat greedy's score; launches {per_batch} a batch; a beam of one "
+        f"parts from greedy in {one_parted} rows (near-ties); f32 kernels vs plain: "
+        f"{BATCH - parted}/{BATCH} rows identical, scores within {score_err:.3e}; "
+        f"{json.dumps(out)}")
+    return out
+
+
+def speculative_phase(paths, root) -> dict:
+    """Phase 11 (see the module docstring): LaTr-base with SPEC_DECODE 4."""
+    phase = "phase 11"
+    encode = {"flash_attention": FULL["vit_num_layers"] + T5_BASE["num_encoder_layers"],
+              "sal_fused_attention": 0}
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        ex = LaTrExecutor(latr_train_config(paths, os.path.join(root, f"spec_{dtype}"),
+                                            DTYPE=dtype, SAVE=False, SPEC_DECODE=SPEC_K),
+                          "train", device=DEVICE)
+        model = ex.model.eval()  # no dropout in the direct decode calls below
+        tb = first_device_batch(ex, variant_rows(ex))
+        with torch.inference_mode():
+            g_rows, g_seen = greedy_recorded(model, tb, MAX_ANSWER)
+        step_k = model.decode_step_k
+        trips, positions = [], []
+
+        def counting(tokens, cache, pos, *args):
+            trips.append(1)
+            positions.append(pos.clone())
+            return step_k(tokens, cache, pos, *args)
+
+        spec = ex._get_generate_fn(MAX_ANSWER)
+        # f32: the near-tie rule; bf16: twice the measured gap between the
+        # window step and the one-token step on greedy's prefixes
+        gap = step_k_logit_gap(model, tb, g_rows, g_seen, SPEC_K)
+        allowed = TIE_MARGIN if dtype == "float32" else max(TIE_MARGIN, 2 * gap)
+        model.decode_step_k = counting
+        try:
+            s_rows = counted(f"{phase} {dtype} prompt lookup", spec, tb, want=encode)
+            lookup_trips, lookup_pos = len(trips), positions[:]
+            parted, margin = tie_parted(f"{phase} {dtype} prompt lookup", s_rows.tolist(),
+                                        g_rows.tolist(), g_seen, margin_allowed=allowed)
+            emitted = [(row.index(1) if 1 in row[1:] else MAX_ANSWER - 1) for row in
+                       g_rows.tolist()]
+            active = [sum(int(p[r]) < emitted[r] for p in lookup_pos) for r in range(BATCH)]
+            accepted = sum(emitted) - sum(active)
+            res = {"rows_parted_from_greedy": parted, "largest_margin_at_parting": margin,
+                   "step_k_logit_gap": gap, "margin_allowed": allowed,
+                   "trips": lookup_trips, "greedy_steps": max(emitted),
+                   "drafts_accepted": accepted, "drafts_made": (SPEC_K - 1) * sum(active),
+                   "acceptance": accepted / max((SPEC_K - 1) * sum(active), 1)}
+            if dtype == "float32":
+                # the oracle: drafts read from greedy's own rows, every one right
+                oracle_rows = g_rows.clone()
+
+                def oracle(rows, pos):
+                    idx = (pos[:, None] + 1 + torch.arange(SPEC_K - 1, device=DEVICE)).clamp(
+                        max=MAX_ANSWER - 1)
+                    return oracle_rows.gather(1, idx)
+
+                trips.clear()
+                with torch.inference_mode():
+                    cache, bias, mask = model.encode_for_generate(tb, MAX_ANSWER)
+                    o_rows = speculative_greedy_decode(
+                        lambda t, c, p: model.decode_step_k(t, c, p, bias, mask), oracle, cache,
+                        BATCH, MAX_ANSWER, SPEC_K, *decode_token_ids(model), DEVICE)
+                o_parted, _ = tie_parted(f"{phase} oracle", o_rows.tolist(), g_rows.tolist(),
+                                         g_seen)
+                want_trips = max(-(-n // SPEC_K) for n in emitted)
+                if not o_parted and len(trips) != want_trips:
+                    raise AssertionError(f"{phase}: oracle drafts took {len(trips)} trips for "
+                                         f"{max(emitted)} tokens, want {want_trips}")
+                res.update(oracle_trips=len(trips), oracle_want_trips=want_trips,
+                           oracle_rows_parted=o_parted)
+                # one window of SPEC_K tokens against SPEC_K one-token steps
+                with torch.inference_mode():
+                    cache, bias, mask = model.encode_for_generate(tb, MAX_ANSWER)
+                    ones = {n: v.clone() for n, v in cache.items()}
+                    steps = []
+                    for i in range(SPEC_K):
+                        logits, ones = model.decode_step(g_rows[:, i], ones, i, bias, mask)
+                        steps.append(logits)
+                    window, _ = step_k(g_rows[:, :SPEC_K], cache,
+                                       torch.zeros(BATCH, dtype=torch.long, device=DEVICE), bias,
+                                       mask)
+                want = torch.stack(steps, 1)
+                rel = float((window - want).norm() / want.norm())
+                if rel > 1e-4:
+                    raise AssertionError(f"{phase}: a {SPEC_K}-token window parts from its "
+                                         f"one-token steps by {rel:.3e} (relative)")
+                res["window_vs_steps_rel_err"] = rel
+            else:
+                greedy_fn = build_generate_fn(model, MAX_ANSWER)
+                spec_ms, greedy_ms = paired_ms(spec, greedy_fn, tb)
+                res.update(ms_per_batch=spec_ms, greedy_ms_per_batch=greedy_ms,
+                           **profile_generate(spec, tb, spec_ms))
+        finally:
+            del model.decode_step_k
+        out[dtype] = res
+        del ex, model
+        torch.cuda.empty_cache()
+    log(f"{phase}: LaTr-base SPEC_DECODE {SPEC_K} at B={BATCH} ({card_line()}): f32 window vs "
+        f"one-token steps "
+        f"{out['float32']['window_vs_steps_rel_err']:.3e}; oracle drafts "
+        f"{out['float32']['oracle_trips']} trips (want {out['float32']['oracle_want_trips']}); "
+        f"prompt lookup identical to greedy in f32 but for {out['float32']['rows_parted_from_greedy']}"
+        f" rows, in bf16 but for {out['bfloat16']['rows_parted_from_greedy']} (near-ties); bf16 "
+        f"{out['bfloat16']['ms_per_batch']:.3f} ms/batch in {out['bfloat16']['trips']} trips "
+        f"against greedy {out['bfloat16']['greedy_ms_per_batch']:.3f} in "
+        f"{out['bfloat16']['greedy_steps']} steps, acceptance "
+        f"{out['bfloat16']['acceptance']:.3f}; {json.dumps(out)}")
+    return out
+
+
+def pool_phase(title, make_ex, per_batch: dict) -> dict:
+    """Phase 12 for one model (see the module docstring). ``make_ex(dtype)``:
+    the executor with ``EVAL_SLOTS: 32``."""
+    phase = "phase 12"
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        ex = make_ex(dtype)
+        dataset = variant_rows(ex)
+        batch_answers = ex.infer(dataset, BATCH, MAX_ANSWER)
+        seen, rows, gap = [], [], 0.0
+        for batch, _ in batch_iterator(dataset, BATCH):
+            tb = ex._device_batch(batch)
+            with torch.inference_mode():
+                r, s = greedy_recorded(ex.model, tb, MAX_ANSWER)
+            gap = max(gap, step_k_logit_gap(ex.model.eval(), tb, r, s, 1))
+            rows.append(r.tolist())
+            seen.append(s)
+        # f32: the near-tie rule; bf16: twice the measured gap between the
+        # K=1 window step and the one-token step on greedy's prefixes
+        allowed = TIE_MARGIN if dtype == "float32" else max(TIE_MARGIN, 2 * gap)
+        ex.config.update(EVAL_CONTINUOUS=True, EVAL_SLOTS=BATCH)
+        if not ex._use_pool_decode():
+            raise AssertionError(f"{phase}: {title}: EVAL_CONTINUOUS did not route to the pool")
+        n_batches = VARIANT_ROWS // BATCH
+        pool_answers = counted(f"{phase} {title} {dtype}", ex.infer, dataset, BATCH, MAX_ANSWER,
+                               want={k: n * n_batches for k, n in per_batch.items()})
+
+        def infer_with(pool: bool):
+            ex.config["EVAL_CONTINUOUS"] = pool
+            return ex.infer(dataset, BATCH, MAX_ANSWER)
+
+        pool_ms, batch_ms = paired_ms(lambda: infer_with(True), lambda: infer_with(False))
+        ex.config["EVAL_CONTINUOUS"] = True
+        pool_rows, _ = ex._infer_pool(dataset, BATCH, MAX_ANSWER, False)
+        parted = sum(tie_parted(f"{phase} {title} {dtype}", pool_rows[j * BATCH:(j + 1) * BATCH],
+                                rows[j], seen[j], margin_allowed=allowed)[0]
+                     for j in range(n_batches))
+        if dtype == "float32" and pool_answers != batch_answers:
+            raise AssertionError(f"{phase}: {title}: f32 pool answers differ from the batch "
+                                 f"decode's")
+        out[dtype] = {"ms_per_batch": pool_ms * BATCH / VARIANT_ROWS,
+                      "batch_path_ms_per_batch": batch_ms * BATCH / VARIANT_ROWS,
+                      "rows_parted": parted, "answers_equal": pool_answers == batch_answers,
+                      "step_k_logit_gap": gap, "margin_allowed": allowed}
+        del ex
+        torch.cuda.empty_cache()
+    log(f"{phase}: {title} EVAL_CONTINUOUS over {VARIANT_ROWS} rows, EVAL_SLOTS {BATCH} "
+        f"({card_line()}): bf16 "
+        f"{out['bfloat16']['ms_per_batch']:.3f} ms a batch of {BATCH} against the batch path's "
+        f"{out['bfloat16']['batch_path_ms_per_batch']:.3f} (random weights: every row runs "
+        f"{MAX_ANSWER - 1} steps, so the pool saves no step); answers identical in f32, bf16 "
+        f"rows parted {out['bfloat16']['rows_parted']} (near-ties); {json.dumps(out)}")
+    return out
+
+
+def sampling_phase(paths, root) -> dict:
+    """Phase 13 (see the module docstring): LaTr-base sampling and
+    PREDICT_SCORES through ``LaTrExecutor``."""
+    phase = "phase 13"
+    encode = {"flash_attention": FULL["vit_num_layers"] + T5_BASE["num_encoder_layers"],
+              "sal_fused_attention": 0}
+    save = os.path.join(root, "sample")
+    ex = LaTrExecutor(latr_train_config(paths, save, SAVE=False, SAMPLE=True, TEMPERATURE=0.0),
+                      "train", device=DEVICE)
+    model = ex.model
+    dataset = variant_rows(ex)
+    tb = first_device_batch(ex, dataset)
+    greedy = build_generate_fn(model, MAX_ANSWER)(tb)
+
+    def sampled(**knobs):
+        ex.config.update(knobs)
+        ex._generate_fns.clear()
+        return ex._get_generate_fn(MAX_ANSWER)
+
+    for knobs in (dict(TEMPERATURE=0.0), dict(TEMPERATURE=1.0, TOP_K=1)):
+        got = counted(f"{phase} {knobs}", sampled(**knobs), tb, want=encode)
+        if not torch.equal(got, greedy):
+            raise AssertionError(f"{phase}: SAMPLE with {knobs} is not greedy")
+    generate = sampled(TEMPERATURE=1.0, TOP_K=5)
+    steps = []
+    step = model.decode_step
+
+    def recording(tokens, cache, i, *args):
+        logits, cache = step(tokens, cache, i, *args)
+        steps.append(logits)
+        return logits, cache
+
+    model.decode_step = recording
+    try:
+        first = generate(tb)
+        first_steps, steps[:] = steps[:], []
+        second = generate(tb)
+    finally:
+        del model.decode_step
+    again = sampled()(tb)  # a new generate: its call counter starts again from SEED
+    if not torch.equal(again, first):
+        raise AssertionError(f"{phase}: the same SEED drew other tokens")
+    if torch.equal(second, first):
+        raise AssertionError(f"{phase}: two calls drew the same tokens")
+    outside = 0
+    done = torch.zeros(BATCH, dtype=torch.bool, device=DEVICE)
+    for i, logits in enumerate(first_steps):
+        tok = first[:, i + 1]
+        top5 = logits.topk(5, dim=-1).indices
+        outside += int(((top5 != tok[:, None]).all(-1) & ~done).sum())
+        done |= tok == 1
+    if outside:
+        raise AssertionError(f"{phase}: {outside} sampled tokens outside the top 5")
+    sample_ms, greedy_ms = paired_ms(generate, build_generate_fn(model, MAX_ANSWER), tb)
+
+    # PREDICT_SCORES through predict(), on the model's seeded weights (no checkpoint)
+    ex.config.update(SAMPLE=False, PREDICT_SCORES=True, get_predict_score=False,
+                     SAVE_PATH=save, PREDICT_BATCH_SIZE=BATCH, max_predict_length=MAX_ANSWER)
+    ex._generate_fns.clear()
+    ex.mode, ex.predict_data = "predict", dataset
+    ex._load_trained_checkpoint = lambda loadtype: None
+    os.makedirs(save, exist_ok=True)
+    results = counted(f"{phase} PREDICT_SCORES", ex.predict,
+                      want={k: n * (VARIANT_ROWS // BATCH) for k, n in encode.items()})
+    want = []
+    for batch, _ in batch_iterator(dataset, BATCH):
+        _, s = build_generate_fn(model, MAX_ANSWER, True)(ex._device_batch(batch))
+        want.extend(torch.exp(s.double()).tolist())
+    conf_err = max(abs(r["confidence"] - w) for r, w in zip(results, want))
+    if len(results) != VARIANT_ROWS or conf_err > 1e-6:
+        raise AssertionError(f"{phase}: PREDICT_SCORES confidences {conf_err:.3e} from greedy's")
+    with open(os.path.join(save, "results.json"), encoding="utf-8") as f:
+        if json.load(f) != results:
+            raise AssertionError(f"{phase}: results.json does not hold the confidences")
+    out = {"sample_ms_per_batch": sample_ms, "greedy_ms_per_batch": greedy_ms,
+           "confidence_max_abs_err": conf_err, "confidences": [r["confidence"] for r in
+                                                               results[:3]],
+           "launches_per_batch": encode}
+    del ex, model
+    torch.cuda.empty_cache()
+    log(f"{phase}: LaTr-base SAMPLE ({card_line()}): TEMPERATURE 0 and TOP_K 1 give greedy's "
+        f"tokens; SEED "
+        f"reproducible, calls differ, TOP_K 5 draws within the top 5; {sample_ms:.3f} ms/batch "
+        f"against greedy {greedy_ms:.3f}; PREDICT_SCORES confidences within {conf_err:.3e} of "
+        f"exp(greedy's scores); {json.dumps(out)}")
+    return out
+
+
+
 def bf16_spills(logs: dict) -> list:
     """[kernel, entry, report] for every bf16 entry (attention_tma_kernel)
     whose -Xptxas -v report shows spill stores or loads."""
@@ -1976,6 +2444,30 @@ def main() -> None:
             paths, os.path.join(paths["root"], "f32"), "prestu", DTYPE="float32",
             TRAIN_BATCH_SIZE=4, SAVE=False), "train", device=DEVICE), prestu_step)
 
+        # phases 10-13: the decode variants, each path's launches counted
+        sal_encode = {"flash_attention": 0, "sal_fused_attention": n_t5}
+        variants = {"beam": {
+            "phoneme_latr": beam_phase(
+                "PhonemeLaTr-base", lambda dtype: PhonemeLaTrExecutor(family_train_config(
+                    paths, os.path.join(paths["root"], "beam"), "phoneme_latr", DTYPE=dtype,
+                    SAVE=False, isgreedy=False, num_beam=NUM_BEAM, **structured_keys), "train",
+                    device=DEVICE), MAX_ANSWER, encode_step),
+            "phoneme_sal": beam_phase(
+                "PhonemeSaL-base", lambda dtype: PhonemeSaLExecutor(phoneme_train_config(
+                    psal_paths, os.path.join(psal_paths["root"], "beam"), DTYPE=dtype, SAVE=False,
+                    isgreedy=False, num_beam=NUM_BEAM), "train", device=DEVICE), PSAL_ANSWER,
+                sal_encode)}}
+        variants["speculative"] = speculative_phase(paths, paths["root"])
+        variants["pool"] = {
+            "latr": pool_phase("LaTr-base", lambda dtype: LaTrExecutor(latr_train_config(
+                paths, os.path.join(paths["root"], "pool"), DTYPE=dtype, SAVE=False), "train",
+                device=DEVICE), encode_step),
+            "phoneme_latr": pool_phase("PhonemeLaTr-base", lambda dtype: PhonemeLaTrExecutor(
+                family_train_config(paths, os.path.join(paths["root"], "pool"), "phoneme_latr",
+                                    DTYPE=dtype, SAVE=False, **structured_keys), "train",
+                device=DEVICE), encode_step)}
+        variants["sampling"] = sampling_phase(paths, paths["root"])
+
     per_batch = lambda key: 12 * shapes[0][key] + 12 * shapes[1][key]
     per_step = lambda key: 12 * sum(r[key] for r in train_shapes)
     # a PhonemeLaTr (or CustomizedLaTr, CustomizedPreSTU, PhonemePreSTU) step:
@@ -2057,6 +2549,15 @@ def main() -> None:
         "prestu_train_step_recompute_backward_ms": prestu_recompute,
         "prestu_vit_recompute_backward_ms_per_step": vit_recompute,
         "prestu_vit_recompute_share_of_step": vit_recompute / steps_9c["prestu"]["ms_per_step"],
+        # the decode variants (phases 10-13): launches a batch of 32, counted
+        # on each path (the one-token and K-token steps stay plain)
+        "launches_per_batch_beam_phoneme_latr":
+            variants["beam"]["phoneme_latr"]["launches_per_batch"]["flash_attention"],
+        "launches_per_batch_speculative_latr": encode_step["flash_attention"],
+        "launches_per_batch_pool_latr": encode_step["flash_attention"],
+        "launches_per_batch_pool_phoneme_latr": encode_step["flash_attention"],
+        "launches_per_batch_sampling_latr":
+            variants["sampling"]["launches_per_batch"]["flash_attention"],
     }, {
         "name": "sal_fused_attention",
         "route": "cuda",
@@ -2087,6 +2588,8 @@ def main() -> None:
         "train_step_recompute_backward_ms": n_t5 * sal_train_shape["recompute_backward_ms"],
         "train_shapes": [sal_train_shape],
         "max_grad_err_bf16": grads["sal_max_grad_err"],
+        "launches_per_batch_beam_phoneme_sal":
+            variants["beam"]["phoneme_sal"]["launches_per_batch"]["sal_fused_attention"],
     }]
     log(json.dumps({"serving": {"latr": served, "sal": sal_served, "phoneme_sal": psal_served,
                                 "phoneme_latr": platr_served, "prestu": prestu_served},
@@ -2096,7 +2599,8 @@ def main() -> None:
                               "phoneme_sal": psal_trained, "phoneme_sal_f32_step": psal_f32,
                               "sal": sal_steps, "phoneme_latr": platr_trained,
                               "phoneme_latr_f32_step": platr_f32, "steps_9c": steps_9c,
-                              "prestu_f32_step": prestu_f32}, "card": card}))
+                              "prestu_f32_step": prestu_f32},
+                    "decode_variants": variants, "card": card}))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card_line())

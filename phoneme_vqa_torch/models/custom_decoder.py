@@ -19,7 +19,8 @@ so on the card it is the attention kernel. Dropout (after the PE, on every
 residual branch, inside the FFN) draws from the T5 backbone's
 :class:`~phoneme_vqa_torch.models.t5.DropoutRNG`, which the trainer
 reseeds every step. Decoding uses a stacked (L, B, H, T, d) cache written in
-place, one position per layer and step, as ``T5Decoder.step`` does.
+place, one position per layer and step, as ``T5Decoder.step`` does, or a
+K-token window at per-row positions (``step_k``, the pool decode).
 :class:`DecoderStack` holds what the phoneme triple decoder
 (``models/phoneme.py``) shares with this one.
 """
@@ -37,7 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import NEG_INF, dot_product_attention
-from .t5 import Dropout, DropoutRNG
+from .t5 import Dropout, DropoutRNG, scatter_window_kv, window_attention
 from .vit import LayerNorm
 
 Cache = Dict[str, torch.Tensor]
@@ -123,6 +124,15 @@ class MHA(nn.Module):
                                     key_mask=key_mask, scale=self.scale)
         return self.out(self._merge(out))
 
+    def step_k(self, x, cache_k, cache_v, pos):
+        """Self-attention over a K-token window at the per-row positions
+        ``pos`` (B,), as ``T5Attention.step_k`` without a relative bias; the
+        cache is not touched here. Returns (out (B, K, D), k_new, v_new)."""
+        k_new, v_new = self._split(self.k(x)), self._split(self.v(x))
+        out = window_attention(self._split(self.q(x)), cache_k, cache_v, k_new, v_new, pos,
+                               scale=self.scale)
+        return self.out(self._merge(out)), k_new, v_new
+
 
 class DecoderLayer(nn.Module):
     """Post-LN: x = LN(x + sublayer(x))."""
@@ -151,6 +161,19 @@ class DecoderLayer(nn.Module):
         x = self.ln1(x + self.self_attn.step(x, cache_k, cache_v, index))
         x = self.ln2(x + self.cross_attn.cross_step(x, cross_k, cross_v, memory_mask))
         return self.ln3(x + self._ffn(x))
+
+    def step_k(self, x, cache_k, cache_v, cross_k, cross_v, pos, memory_mask=None):
+        h, k_new, v_new = self.self_attn.step_k(x, cache_k, cache_v, pos)
+        x = self.ln1(x + h)
+        x = self.ln2(x + self.cross_attn.cross_step(x, cross_k, cross_v, memory_mask))
+        return self.ln3(x + self._ffn(x)), k_new, v_new
+
+
+def per_row_pe_rows(pe: torch.Tensor, pos: torch.Tensor, kk: int) -> torch.Tensor:
+    """The PE rows of a K-token window at per-row start positions: (maxlen,
+    D), (B,) -> (B, K, D), clamped at the table's end."""
+    qpos = (pos[:, None] + torch.arange(kk, device=pos.device)[None, :]).clamp(max=pe.shape[0] - 1)
+    return pe[qpos]
 
 
 class DecoderStack:
@@ -183,6 +206,11 @@ class DecoderStack:
         """(B, T, d) f32 embeddings + the PE rows from ``offset``, in the
         compute dtype."""
         return (x + self.pe[offset : offset + x.shape[1]][None]).to(self.cfg.dtype)
+
+    def _with_pe_rows(self, x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+        """(B, K, d) f32 embeddings + the PE rows of each row's window from
+        its own ``pos`` (B,), in the compute dtype."""
+        return (x + per_row_pe_rows(self.pe, pos, x.shape[1])).to(self.cfg.dtype)
 
     def _run_stack(self, x, memory, memory_mask=None, tgt_keep_mask=None) -> torch.Tensor:
         """Teacher-forced: PE dropout, then every layer."""
@@ -217,6 +245,19 @@ class DecoderStack:
                            index, memory_mask)
         return x
 
+    def _step_k_stack(self, x, cache: Cache, pos, memory_mask=None) -> torch.Tensor:
+        """Every layer's K-token step at the per-row positions ``pos``, then
+        one write of all layers' window K/V into the cache."""
+        memory_mask = None if memory_mask is None else memory_mask.bool()
+        k_news, v_news = [], []
+        for l, layer in enumerate(self.layers):
+            x, k_new, v_new = layer.step_k(x, cache["k"][l], cache["v"][l], cache["ck"][l],
+                                           cache["cv"][l], pos, memory_mask)
+            k_news.append(k_new)
+            v_news.append(v_new)
+        scatter_window_kv(cache, torch.stack(k_news), torch.stack(v_news), pos)
+        return x
+
 
 class CustomDecoder(DecoderStack, nn.Module):
     """Scaled token embedding + sinusoidal PE + post-LN decoder stack + LM
@@ -244,3 +285,10 @@ class CustomDecoder(DecoderStack, nn.Module):
         logits, cache), the cache written in place."""
         x = self._step_stack(self._embed(tokens[:, None], offset=index), cache, index, memory_mask)
         return self.lm_head(x).float()[:, 0], cache
+
+    def step_k(self, tokens: torch.Tensor, cache: Cache, pos, memory_mask=None):
+        """A K-token decode step at the per-row positions ``pos`` (B,):
+        tokens (B, K) -> ((B, K, V) f32 logits, cache), the window's K/V
+        written in place."""
+        x = self._with_pe_rows(self.embed(tokens) * math.sqrt(self.cfg.d_model), pos)
+        return self.lm_head(self._step_k_stack(x, cache, pos, memory_mask)).float(), cache

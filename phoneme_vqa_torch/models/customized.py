@@ -99,6 +99,9 @@ class CustomizedSaL_config:
 class _CustomDecodeMixin:
     """The custom decoder in place of the T5 decoder."""
 
+    # prompt-lookup drafts are backbone token ids, not the answer vocabulary's
+    spec_decode_supported = False
+
     def forward(self, batch, labels, label_mask):
         """Teacher-forced (B, T, V) f32 logits over the answer vocabulary."""
         enc_out, enc_mask = self.encode(batch)
@@ -112,6 +115,11 @@ class _CustomDecodeMixin:
 
     def decode_step(self, tokens, cache, index: int, full_bias, enc_mask):
         return self.decoder.step(tokens, cache, index, enc_mask)
+
+    def decode_step_k(self, tokens, cache, pos, full_bias, enc_mask):
+        """A K-token step at per-row positions (the pool decode); the custom
+        decoder has no relative bias."""
+        return self.decoder.step_k(tokens, cache, pos, enc_mask)
 
     @property
     def decode_token_ids(self):

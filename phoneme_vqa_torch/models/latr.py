@@ -114,6 +114,9 @@ class FusionModel(nn.Module):
 
     BATCH_KEYS: tuple = ()
     DATASET: type
+    # the stock T5 decoder verifies speculative windows (``decode_step_k``);
+    # the custom and phoneme decoder mixins turn this off
+    spec_decode_supported = True
 
     def __init__(self, cfg: LaTrConfig, device="cuda", t5_decoder: bool = True):
         super().__init__()
@@ -165,6 +168,11 @@ class FusionModel(nn.Module):
 
     def decode_step(self, tokens, cache, index: int, full_bias, enc_mask):
         return self.t5.decode_step(tokens, cache, index, full_bias, enc_mask)
+
+    def decode_step_k(self, tokens, cache, pos, full_bias, enc_mask):
+        """A K-token step at per-row positions (speculative verification,
+        the pool decode)."""
+        return self.t5.decode_step_k(tokens, cache, pos, full_bias, enc_mask)
 
 
 @MODELS.register("LaTr")

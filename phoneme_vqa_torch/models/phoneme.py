@@ -122,6 +122,15 @@ class PhonemeTripleDecoder(DecoderStack, nn.Module):
         onset, rhyme, tone = self._heads(x)
         return (onset[:, 0], rhyme[:, 0], tone[:, 0]), cache
 
+    def step_k(self, triples: torch.Tensor, cache: Cache, pos, memory_mask=None):
+        """A K-triple decode step at the per-row positions ``pos`` (B,):
+        triples (B, K, 3) -> (3-tuple of (B, K, V_c) f32 logits, cache), the
+        window's K/V written in place."""
+        x = torch.cat([self.onset_embed(triples[..., 0]), self.rhyme_embed(triples[..., 1]),
+                       self.tone_embed(triples[..., 2])], dim=-1)
+        return self._heads(self._step_k_stack(self._with_pe_rows(x, pos), cache, pos,
+                                              memory_mask)), cache
+
 
 def phoneme_decoder_from_yaml(config, t5, onset_vocab: int, rhyme_vocab: int, tone_vocab: int,
                               pad_id: int, bos_id: int, eos_id: int) -> PhonemeDecoderConfig:
@@ -144,6 +153,8 @@ class _PhonemeTripleMixin:
     """Triple-decoder plumbing over any model with ``encode(batch)``."""
 
     decode_components = 3
+    # prompt-lookup drafts are backbone token ids, not triples
+    spec_decode_supported = False
 
     def _add_decoder(self):
         self.decoder = PhonemeTripleDecoder(self.cfg.phoneme_decoder, self.device,
@@ -161,6 +172,10 @@ class _PhonemeTripleMixin:
 
     def decode_step(self, tokens, cache, index: int, full_bias, enc_mask):
         return self.decoder.step(tokens, cache, index, enc_mask)
+
+    def decode_step_k(self, tokens, cache, pos, full_bias, enc_mask):
+        """A K-triple step at per-row positions (the pool decode)."""
+        return self.decoder.step_k(tokens, cache, pos, enc_mask)
 
     @property
     def decode_token_ids(self):

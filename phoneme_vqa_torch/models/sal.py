@@ -100,6 +100,9 @@ class SaLFusion(nn.Module):
     decoder into ``t5``."""
 
     BATCH_KEYS = BATCH_KEYS
+    # the stock T5 decoder verifies speculative windows (``decode_step_k``);
+    # the custom and phoneme decoder mixins turn this off
+    spec_decode_supported = True
 
     def __init__(self, cfg: SaLConfig, device="cuda", t5_decoder: bool = True):
         super().__init__()
@@ -179,6 +182,11 @@ class SaL(SaLFusion):
 
     def decode_step(self, tokens, cache, index: int, full_bias, enc_mask):
         return self.t5.decode_step(tokens, cache, index, full_bias, enc_mask)
+
+    def decode_step_k(self, tokens, cache, pos, full_bias, enc_mask):
+        """A K-token step at per-row positions (speculative verification,
+        the pool decode)."""
+        return self.t5.decode_step_k(tokens, cache, pos, full_bias, enc_mask)
 
 
 def build_sal(config, device="cuda", seed: int = 0, model_cls=None, cfg=None) -> SaLFusion:

@@ -20,7 +20,10 @@ blocks. It draws from the model's :class:`DropoutRNG` in training mode and
 is the identity in eval mode and in the decode steps.
 
 Decoding uses a stacked (L, B, H, T, d) self-attention cache and
-cross-attention K/V projected once per sequence in :meth:`T5Decoder.init_cache`.
+cross-attention K/V projected once per sequence in :meth:`T5Decoder.init_cache`:
+one token a step (:meth:`T5Decoder.step`), or a window of K tokens at
+per-row positions (:meth:`T5Decoder.step_k`, for speculative verification and
+the pool decode).
 """
 
 from __future__ import annotations
@@ -197,6 +200,68 @@ class T5Attention(nn.Module):
         out = dot_product_attention(q, cached_k, cached_v, key_mask=key_mask)
         return self.o(self._merge(out))
 
+    def step_k(self, x, cache_k, cache_v, pos, bias_rows=None):
+        """Self-attention over a window of K tokens per row starting at the
+        per-row position ``pos`` (B,): each query attends the cache strictly
+        before its row's window plus the window's own K/V up to itself, with
+        the relative bias gathered per row (``bias_rows`` (B, H, K, T)). The
+        cache is not touched here: the caller writes all layers' window K/V
+        at once (:func:`scatter_window_kv`). Returns (out (B, K, D), k_new,
+        v_new (B, H, K, d))."""
+        q = self._split(self.q(x))
+        k_new, v_new = self._split(self.k(x)), self._split(self.v(x))
+        win_bias = None
+        if bias_rows is not None:
+            # the bias of the window's own keys: columns pos+m of its rows,
+            # clamped at the buffer end (only tails no query accepts reach it)
+            t, kk = cache_k.shape[2], x.shape[1]
+            cols = (pos[:, None] + torch.arange(kk, device=pos.device)[None, :]).clamp(max=t - 1)
+            win_bias = bias_rows.gather(3, cols[:, None, None, :].expand(*bias_rows.shape[:3], kk))
+        out = window_attention(q, cache_k, cache_v, k_new, v_new, pos, bias_rows, win_bias)
+        return self.o(self._merge(out)), k_new, v_new
+
+
+def window_attention(q, cache_k, cache_v, k_new, v_new, pos, bias_cache=None, bias_win=None,
+                     scale=None):
+    """Attention of a K-query window at per-row positions ``pos`` (B,): the
+    keys are the cache's positions strictly before the row's window, then
+    the window's own keys up to the query (causal), one softmax over both,
+    f32 logits. q, k_new, v_new (B, H, K, d); cache (B, H, T, d); biases
+    (B, H, K, T) and (B, H, K, K), added after ``scale``."""
+    t, kk = cache_k.shape[2], q.shape[2]
+    logits_cache = torch.matmul(q.float(), cache_k.float().transpose(-1, -2))  # (B, H, K, T)
+    logits_win = torch.matmul(q.float(), k_new.float().transpose(-1, -2))  # (B, H, K, K)
+    if scale is not None:
+        logits_cache, logits_win = logits_cache * scale, logits_win * scale
+    if bias_cache is not None:
+        logits_cache = logits_cache + bias_cache.float()
+        logits_win = logits_win + bias_win.float()
+    before = torch.arange(t, device=q.device)[None, :] < pos[:, None]  # (B, T)
+    logits_cache = logits_cache.masked_fill(~before[:, None, None, :], NEG_INF)
+    causal = torch.ones(kk, kk, dtype=torch.bool, device=q.device).tril()
+    logits_win = logits_win.masked_fill(~causal, NEG_INF)
+    probs = torch.softmax(torch.cat([logits_cache, logits_win], dim=-1), dim=-1).to(cache_v.dtype)
+    # one product over [cache | window] values: one rounding of the output in
+    # the compute dtype, as the one-token step has
+    return torch.matmul(probs, torch.cat([cache_v, v_new], dim=2))
+
+
+def scatter_window_kv(cache: Cache, k_news, v_news, pos) -> Cache:
+    """Write the window K/V of every layer, (L, B, H, K, d), into the
+    stacked (L, B, H, T, d) cache in place at per-row positions pos..pos+K-1;
+    positions at or past T are dropped (a row's window may run past the
+    buffer only with tokens no query accepts). The JAX package clamps them
+    to T-1 and sums them there, into a slot nothing reads."""
+    t, kk = cache["k"].shape[3], k_news.shape[3]
+    j = torch.arange(t, device=pos.device)[None, :] - pos[:, None]  # (B, T): window index
+    hit = ((j >= 0) & (j < kk))[None, :, None, :, None]
+    idx = j.clamp(0, kk - 1)[None, :, None, :, None]
+    for name, new in (("k", k_news), ("v", v_news)):
+        old = cache[name]
+        picked = new.gather(3, idx.expand(*new.shape[:3], t, new.shape[4]))
+        old.copy_(torch.where(hit, picked, old))
+    return cache
+
 
 class RelativeBias(nn.Module):
     def __init__(self, cfg: T5Config, bidirectional: bool, device=None):
@@ -298,6 +363,15 @@ class T5DecoderBlock(nn.Module):
         x = x + self.cross_attn.cross_step(self.ln1(x), cross_k, cross_v, enc_mask)
         return x + self.ffn(self.ln2(x))
 
+    def step_k(self, x, cache_k, cache_v, cross_k, cross_v, pos, bias_rows, enc_mask):
+        """A K-token window at per-row positions; the cross-attention is
+        position-free and serves the K queries as they are. Returns (x,
+        k_new, v_new)."""
+        h, k_new, v_new = self.self_attn.step_k(self.ln0(x), cache_k, cache_v, pos, bias_rows)
+        x = x + h
+        x = x + self.cross_attn.cross_step(self.ln1(x), cross_k, cross_v, enc_mask)
+        return x + self.ffn(self.ln2(x)), k_new, v_new
+
 
 class T5Decoder(nn.Module):
     def __init__(self, cfg: T5Config, device=None, rng: Optional[DropoutRNG] = None):
@@ -347,6 +421,28 @@ class T5Decoder(nn.Module):
                 x, cache["k"][l], cache["v"][l], cache["ck"][l], cache["cv"][l],
                 index, bias_row, enc_mask,
             )
+        return self.final_ln(x), cache
+
+    def step_k(self, tok_embeds, cache: Cache, pos, full_bias, enc_mask=None):
+        """A decode step over a window of K tokens per row at the per-row
+        positions ``pos`` (B,) (speculative verification, the pool decode):
+        the relative-bias rows are gathered per row, clamped at T-1, and the
+        window K/V written in place (:func:`scatter_window_kv`). Reads no
+        device value back to the host."""
+        t, kk = full_bias.shape[-1], tok_embeds.shape[1]
+        qpos = (pos[:, None] + torch.arange(kk, device=pos.device)[None, :]).clamp(max=t - 1)
+        bias_rows = full_bias[0][:, qpos].permute(1, 0, 2, 3)  # (B, H, K, T)
+        enc_mask = None if enc_mask is None else enc_mask.bool()
+        x = tok_embeds.to(self.cfg.dtype)
+        k_news, v_news = [], []
+        for l, block in enumerate(self.blocks):
+            x, k_new, v_new = block.step_k(
+                x, cache["k"][l], cache["v"][l], cache["ck"][l], cache["cv"][l],
+                pos, bias_rows, enc_mask,
+            )
+            k_news.append(k_new)
+            v_news.append(v_new)
+        scatter_window_kv(cache, torch.stack(k_news), torch.stack(v_news), pos)
         return self.final_ln(x), cache
 
 
@@ -399,3 +495,10 @@ class T5(nn.Module):
             self.embed(token_ids[:, None]), cache, index, full_bias, enc_mask
         )
         return self.lm_logits(hidden)[:, 0], cache
+
+    def decode_step_k(self, token_ids, cache, pos, full_bias, enc_mask=None):
+        """A K-token decode step at per-row positions: token_ids (B, K), pos
+        (B,) -> ((B, K, V) f32 logits, cache)."""
+        hidden, cache = self.decoder.step_k(self.embed(token_ids), cache, pos, full_bias,
+                                            enc_mask)
+        return self.lm_logits(hidden), cache

@@ -8,8 +8,15 @@
   ``EARLY_STOP_PATIENCE``, auto-resume from ``last_ckp`` then ``best_ckp``;
 * evaluate: load the ``evaltype`` checkpoint, compute the metric dict;
 * predict: load the ``predicttype`` checkpoint, write ``results.json``
-  (``[{"gens", "gts"}]`` with ``get_predict_score``, else ``[{"gens"}]``);
+  (``[{"gens", "gts"}]`` with ``get_predict_score``, else ``[{"gens"}]``;
+  ``PREDICT_SCORES`` adds ``"confidence"``, exp of the answer's mean
+  log-probability);
 * metrics dedup consecutive repeated answers and key samples "0_", "1_", ...
+* decode: greedy by default; ``SAMPLE`` (``TEMPERATURE``, ``TOP_K``,
+  ``TOP_P``, ``SEED``) samples, ``SPEC_DECODE: K`` verifies prompt-lookup
+  drafts K tokens a trip, and ``EVAL_CONTINUOUS`` routes ``infer`` through
+  the slot-refill pool decode (``EVAL_SLOTS``, ``EVAL_POOL_ROWS``);
+  the customized executors add beam search (``isgreedy``, ``num_beam``).
 
 A train step is three parts, each its own method so a caller can time
 them: the forward and loss (:meth:`forward_loss`), ``loss.backward()``, and
@@ -25,6 +32,7 @@ from __future__ import annotations
 
 import itertools
 import json
+import math
 import os
 import pickle
 import time
@@ -35,7 +43,14 @@ import torch
 from .. import evaluation
 from ..config import Config
 from ..data.loader import batch_iterator, num_batches
-from ..models.generate import build_generate_fn
+from ..decode.pool import CACHE_KEYS, pool_greedy_decode
+from ..decode.sample import sample_generator
+from ..models.generate import (
+    build_generate_fn,
+    decode_token_ids,
+    make_sample_generate_fn,
+    make_speculative_generate_fn,
+)
 from ..models.latr import to_device_batch
 from ..ops import attention as attn_mod
 from ..serving.engine import decode_rows
@@ -73,10 +88,6 @@ UNPORTED = (
     ("PROFILE_DIR", lambda v: bool(v), "A12"),
     ("DEBUG_NANS", lambda v: bool(v), "A12"),
     ("NUMWORKERS", lambda v: bool(v), "A12"),
-    ("EVAL_CONTINUOUS", lambda v: bool(v), "A11"),
-    ("SAMPLE", lambda v: bool(v), "A11"),
-    ("SPEC_DECODE", lambda v: int(v or 0) > 1, "A11"),
-    ("PREDICT_SCORES", lambda v: bool(v), "A11"),
     ("pretrained_weights_path", lambda v: bool(v), "A13"),
     ("MESH", lambda v: _mesh_devices(v) > 1, "A15"),
     ("FLASH", lambda v: v is not None, "B1: the port always runs its kernel on the card"),
@@ -225,9 +236,13 @@ class BaseExecutor:
             log.info("\t#PREDICTION:\n")
             log.info(f"\t{scores}")
         else:
+            want_conf = bool(self.config.get("PREDICT_SCORES"))
             preds = self.infer(self.predict_data, self.config.PREDICT_BATCH_SIZE,
-                               self.config.max_predict_length)
-            results = [{"gens": p} for p in preds]
+                               self.config.max_predict_length, return_scores=want_conf)
+            if want_conf:
+                results = [{"gens": p, "confidence": math.exp(c)} for p, c in zip(*preds)]
+            else:
+                results = [{"gens": p} for p in preds]
         out_path = os.path.join(self.config.SAVE_PATH or ".", "results.json")
         with open(out_path, "w", encoding="utf-8") as f:
             json.dump(results, f, ensure_ascii=False, indent=4)
@@ -237,9 +252,15 @@ class BaseExecutor:
     # -- metrics ---------------------------------------------------------------
 
     def _evaluate_metrics(self, return_results: bool = False):
+        # PREDICT_SCORES adds each answer's confidence to results.json; the
+        # schema is unchanged without it
+        want_conf = return_results and bool(self.config.get("PREDICT_SCORES"))
+        confs = None
         if self.mode == "predict":
             preds = self.infer(self.predict_data, self.config.PREDICT_BATCH_SIZE,
-                               self.config.max_predict_length)
+                               self.config.max_predict_length, return_scores=want_conf)
+            if want_conf:
+                preds, confs = preds
             answers_gt = [a.strip() for a in self.predict_answer]
         else:
             preds = self.infer(self.val_data, self.config.EVAL_BATCH_SIZE,
@@ -256,6 +277,9 @@ class BaseExecutor:
         score, _ = evaluation.compute_scores(gts, gens)
         if self.mode == "predict" and return_results:
             results = [{"gens": gen, "gts": gt} for gen, gt in zip(answers_gen, answers_gt)]
+            if confs is not None:
+                for row, c in zip(results, confs):
+                    row["confidence"] = math.exp(c)
             return results, score
         return score
 
@@ -440,26 +464,129 @@ class BaseExecutor:
                          f"{it * c.TRAIN_BATCH_SIZE / elapsed:.1f} samples/s")
         return total / max(it, 1)
 
-    def infer(self, dataset, batch_size: int, max_length: int) -> List[str]:
+    def infer(self, dataset, batch_size: int, max_length: int,
+              return_scores: bool = False) -> List[str]:
         """Decode answer strings for every dataset row, in batches of
-        ``batch_size`` (the last one padded). The module's weights are the
-        compute-dtype copies of the masters, the JAX executor's
-        ``_inference_params``."""
+        ``batch_size`` (the last one padded), or through the pool decode
+        (``EVAL_CONTINUOUS``). ``return_scores=True`` returns ``(answers,
+        scores)``: each answer's mean emitted-token log-probability. The
+        module's weights are the compute-dtype copies of the masters, the JAX
+        executor's ``_inference_params``."""
         self.model.eval()
-        if max_length not in self._generate_fns:
-            self._generate_fns[max_length] = self._build_generate_fn(max_length)
-        generate = self._generate_fns[max_length]
-        rows: List = []
-        for batch, n_valid in batch_iterator(dataset, batch_size, pad_final=True):
-            out = generate(to_device_batch(batch, self.device, self.model_class.BATCH_KEYS))
-            rows.extend(out[:n_valid].tolist())
-        return self._decode_rows(rows)
+        if self._use_pool_decode():
+            rows, scores = self._infer_pool(dataset, batch_size, max_length, return_scores)
+        else:
+            generate = self._get_generate_fn(max_length, return_scores)
+            rows, scores = [], []
+            for batch, n_valid in batch_iterator(dataset, batch_size, pad_final=True):
+                out = generate(self._device_batch(batch))
+                ids = out[0] if return_scores else out
+                rows.extend(ids[:n_valid].tolist())
+                if return_scores:
+                    scores.extend(out[1][:n_valid].double().tolist())
+        answers = self._decode_rows(rows)
+        return (answers, scores) if return_scores else answers
 
-    def _build_generate_fn(self, max_length: int):
-        """The greedy generate ``infer`` decodes with, chosen by the model:
-        token rows, or the phoneme triple decoder's (onset, rhyme, tone)
-        rows (``models.generate.build_generate_fn``)."""
-        return build_generate_fn(self.model, max_length)
+    def _device_batch(self, batch: dict) -> dict:
+        return to_device_batch(batch, self.device, self.model_class.BATCH_KEYS)
+
+    def _get_generate_fn(self, max_length: int, with_scores: bool = False):
+        key = (max_length, with_scores)
+        if key not in self._generate_fns:
+            self._generate_fns[key] = self._build_generate_fn(max_length, with_scores)
+        return self._generate_fns[key]
+
+    def _build_generate_fn(self, max_length: int, with_scores: bool = False):
+        """The generate ``infer`` decodes with: sampled (``SAMPLE``), verified
+        by speculative windows (``SPEC_DECODE``, the stock T5 decoders), else
+        greedy over the model's rows (``models.generate.build_generate_fn``)."""
+        c = self.config
+        if c.get("SAMPLE"):
+            if c.get("SPEC_DECODE"):
+                log.warning("(!) SAMPLE and SPEC_DECODE both set: sampling wins (speculative "
+                            "verification is greedy-only)")
+            seed = int(c.get("SEED", 13))
+            sampled = make_sample_generate_fn(
+                self.model, max_length, temperature=float(c.get("TEMPERATURE", 1.0)),
+                top_k=int(c.get("TOP_K", 0) or 0), top_p=float(c.get("TOP_P", 1.0)), seed=seed,
+                with_scores=with_scores)
+            # a per-call counter: repeated calls draw fresh noise, one process
+            # stays reproducible from SEED
+            calls = itertools.count()
+            return lambda batch: sampled(batch, sample_generator(seed, next(calls), self.device))
+        spec_k = int(c.get("SPEC_DECODE", 0) or 0)
+        if spec_k > 1:
+            if getattr(type(self.model), "spec_decode_supported", False):
+                return make_speculative_generate_fn(self.model, max_length, spec_k, with_scores)
+            log.warning(f"(!) SPEC_DECODE={spec_k} ignored: {type(self.model).__name__} uses a "
+                        "custom decoder cache")
+        return build_generate_fn(self.model, max_length, with_scores)
+
+    # -- slot-refill offline decode (EVAL_CONTINUOUS) --------------------------------
+
+    def _use_pool_decode(self) -> bool:
+        """``EVAL_CONTINUOUS: true`` routes ``infer`` through the slot-refill
+        pool decode (``decode/pool.py``): the same answers, fewer decode steps
+        when answer lengths vary. Greedy only: a ``SAMPLE``, ``SPEC_DECODE``
+        or beam config logs why and keeps the batch decode."""
+        c = self.config
+        if not c.get("EVAL_CONTINUOUS"):
+            return False
+        reason = None
+        if c.get("SAMPLE") or int(c.get("SPEC_DECODE", 0) or 0) > 1:
+            reason = "SAMPLE/SPEC_DECODE configs use the batch decode"
+        elif not (c.get("isgreedy", True) or int(c.get("num_beam", 1) or 1) <= 1):
+            reason = "beam search uses the batch decode"
+        if reason is not None:
+            if not getattr(self, "_warned_pool", False):
+                log.warning(f"(!) EVAL_CONTINUOUS ignored: {reason}")
+                self._warned_pool = True
+            return False
+        return True
+
+    @torch.inference_mode()
+    def _infer_pool(self, dataset, batch_size: int, max_length: int, return_scores: bool):
+        """Rows through the pool decode: each batch is prefilled (the batch
+        path's encode), its rows kept on the device as a pool of up to
+        ``EVAL_POOL_ROWS`` (at least a batch), and each pool decoded by
+        ``EVAL_SLOTS`` (default: the batch size) refilling slots. Returns
+        (token rows, scores)."""
+        model = self.model
+        num_slots = int(self.config.get("EVAL_SLOTS", 0) or batch_size)
+        pool_max = max(int(self.config.get("EVAL_POOL_ROWS", 128)), batch_size)
+        ncomp = int(getattr(type(model), "decode_components", 1))
+        bos, eos, pad = decode_token_ids(model)
+        rows, scores, caches, masks = [], [], [], []
+        pooled, full_bias = 0, None
+
+        def flush():
+            nonlocal caches, masks, pooled
+            if not pooled:
+                return
+            cache = {n: torch.cat([c[n] for c in caches], dim=1) for n in CACHE_KEYS}
+            enc_mask = torch.cat(masks, dim=0)
+            bias = full_bias
+
+            def step_k(tokens, cache, pos, enc_mask):
+                return model.decode_step_k(tokens, cache, pos, bias, enc_mask)
+
+            out = pool_greedy_decode(step_k, cache, enc_mask, num_slots, max_length, bos, eos,
+                                     pad, num_components=ncomp, with_scores=return_scores)
+            rows.extend((out[0] if return_scores else out).tolist())
+            if return_scores:
+                scores.extend(out[1].double().tolist())
+            caches, masks, pooled = [], [], 0
+
+        for batch, n_valid in batch_iterator(dataset, batch_size, pad_final=True):
+            cache, full_bias, enc_mask = model.encode_for_generate(self._device_batch(batch),
+                                                                   max_length)
+            caches.append({n: cache[n][:, :n_valid] for n in CACHE_KEYS})  # drop the pad rows
+            masks.append(enc_mask[:n_valid])
+            pooled += n_valid
+            if pooled >= pool_max:
+                flush()
+        flush()
+        return rows, scores
 
     def _decode_rows(self, rows) -> List[str]:
         """Cut [start, ..., eos] to the tokens between, then detokenize with

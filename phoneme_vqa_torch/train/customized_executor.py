@@ -13,7 +13,11 @@ epochs.
   gradients are multiplied by 0, as the JAX executor does. It is a gradient
   scale, not a mask: the optimizer still counts the step, decays the
   moments and applies decoupled weight decay to those parameters, so the
-  optimizer state follows optax's.
+  optimizer state follows optax's;
+* decode: greedy, or beam search with ``isgreedy: false`` and ``num_beam``
+  > 1 (over triples for the phoneme triple decoder). As in the JAX package
+  these executors decode by that choice alone: ``SAMPLE`` and
+  ``SPEC_DECODE`` do not reach them.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from typing import List
 
 from .. import tokenizers  # noqa: F401  (registers the answer tokenizers)
 from ..models import customized  # noqa: F401  (registers the model and its config)
+from ..models.generate import build_generate_fn
 from ..serving.engine import decode_answer_rows
 from ..utils.logger import get_logger
 from ..utils.registry import EXECUTORS, TOKENIZERS
@@ -68,11 +73,13 @@ class _CustomizedMixin:
     def _loss_pad_id(self) -> int:
         return self.decode_tokenizer.pad_id
 
-    def _check_greedy(self) -> None:
+    def _build_generate_fn(self, max_length: int, with_scores: bool = False):
+        """Greedy with ``isgreedy`` (default) or ``num_beam`` <= 1, else beam
+        search with ``num_beam`` hypotheses."""
         c = self.config
-        if not c.get("isgreedy", True) and int(c.get("num_beam", 1) or 1) > 1:
-            raise NotImplementedError("beam decode (isgreedy: false, num_beam > 1) is not "
-                                      "ported yet (ROADMAP A11)")
+        greedy = c.get("isgreedy", True) or int(c.get("num_beam", 1) or 1) <= 1
+        return build_generate_fn(self.model, max_length, with_scores,
+                                 num_beams=1 if greedy else int(c.num_beam))
 
     def _decoder_ids(self) -> dict:
         """The answer vocabulary's size and ids, as the config builders take
@@ -82,7 +89,6 @@ class _CustomizedMixin:
                     eos_id=tok.eos_id)
 
     def _build_model_config(self, cfg_builder):
-        self._check_greedy()
         return cfg_builder.build(self.config, **self._decoder_ids())
 
     def _decode_rows(self, rows) -> List[str]:
@@ -127,6 +133,5 @@ class CustomizedSaLExecutor(_CustomizedMixin, SaLExecutor):
     def _build_model_config(self, cfg_builder):
         """The SaL builder also takes the backbone tokenizer's length (the
         ``<c>`` context token added)."""
-        self._check_greedy()
         return cfg_builder.build(self.config, **self._decoder_ids(),
                                  new_token_embedding_size=self._new_vocab_size())

@@ -7,6 +7,7 @@
   ``annotation_paths``. Answers are encoded as (T, 3) triples with a mask of
   onset != pad; the loss sums three cross-entropies over ``labels[:, 1:,
   c]``; decoding is the multi-head greedy loop, stopped by the onset's EOS,
+  or the multi-head beam search (``isgreedy: false``, ``num_beam`` > 1),
   and the (B, T, 3) rows are recomposed into Vietnamese words. The model
   config is a ``PhonemeLaTrConfig`` with a frozen ViT, built from the
   YAML's ``MODEL_MOD_CONFIG_CLASS`` backbone. Encoder-freeze epochs and the
@@ -50,7 +51,6 @@ class _PhonemeTripleExecMixin(_CustomizedMixin):
         return encode
 
     def _build_model_config(self, cfg_builder):
-        self._check_greedy()
         tok = self.decode_tokenizer
         base = cfg_builder.build(self.config)
         return PhonemeLaTrConfig(

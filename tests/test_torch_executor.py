@@ -154,7 +154,7 @@ def test_eval_loads_from_the_models_fallback(trained, tmp_path, monkeypatch):
     assert got == want
 
 
-KNOB_VALUES = {"GRAD_ACCUM_STEPS": 2, "SPEC_DECODE": 2, "MESH": {"data": 2, "model": 1},
+KNOB_VALUES = {"GRAD_ACCUM_STEPS": 2, "MESH": {"data": 2, "model": 1},
                "FLASH": False, "SAL_FUSED": False}
 KNOBS = [(key, KNOB_VALUES.get(key, True)) for key, _, _ in t_base.UNPORTED]
 
@@ -164,6 +164,63 @@ def test_every_knob_the_port_lacks_raises(trained, key, value):
     _, j_config, t_cfg, _, _, _ = trained
     with pytest.raises(NotImplementedError, match=f"{key}.*ROADMAP"):
         LaTrExecutor(t_config.Config({**t_cfg, key: value}), "train", device="cpu")
+
+
+# the decode knobs, each held against the JAX executor with the same knob
+DECODE_KNOBS = {
+    # the pool decode: 2 slots over pools of 5 rows (refills, 2 pools)
+    "EVAL_CONTINUOUS": dict(EVAL_CONTINUOUS=True, EVAL_SLOTS=2, EVAL_POOL_ROWS=5),
+    "SAMPLE": dict(SAMPLE=True, TEMPERATURE=0.0),  # temperature 0: greedy
+    "SPEC_DECODE": dict(SPEC_DECODE=3),
+    "PREDICT_SCORES": dict(PREDICT_SCORES=True),
+}
+
+
+@pytest.mark.parametrize("key", list(DECODE_KNOBS))
+def test_decode_knob_matches_the_jax_executor(trained, tmp_path, key):
+    """Predict and ``infer`` with the knob, the port's executor from its
+    trained checkpoint and the JAX one from its own: the same results.json
+    (confidences within 1e-5), and greedy's answers."""
+    _, j_config, t_cfg, j_save, t_save, _ = trained
+    knob = DECODE_KNOBS[key]
+    j_dir, t_dir = str(tmp_path / "jax"), str(tmp_path / "port")
+    shutil.copytree(j_save, j_dir)
+    shutil.copytree(t_save, t_dir)
+    greedy = T_EXECUTORS.get(t_cfg.EXECUTOR)(_port_config(t_cfg, t_dir), "predict",
+                                             predicttype="best", device="cpu")
+    greedy._load_trained_checkpoint("best")
+    greedy_answers = greedy.infer(greedy.predict_data, 4, 10)
+    for score in (True, False) if key == "PREDICT_SCORES" else (True,):
+        j_cfg = get_config_dict(j_config, SAVE_PATH=j_dir, get_predict_score=score, **knob)
+        want = EXECUTORS.get(j_config.EXECUTOR)(j_cfg, mode="predict", predicttype="best").run()
+        t_ex = T_EXECUTORS.get(t_cfg.EXECUTOR)(_port_config(t_cfg, t_dir, get_predict_score=score,
+                                                            **knob),
+                                               "predict", predicttype="best", device="cpu")
+        got = t_ex.run()
+        assert [r["gens"] for r in got] == [r["gens"] for r in want]
+        assert set(got[0]) == set(want[0]) == {"gens"} | ({"gts"} if score else set()) | (
+            {"confidence"} if key == "PREDICT_SCORES" else set())
+        if key == "PREDICT_SCORES":
+            np.testing.assert_allclose([r["confidence"] for r in got],
+                                       [r["confidence"] for r in want], rtol=1e-5, atol=1e-5)
+            assert all(0.0 < r["confidence"] <= 1.0 for r in got)
+        else:
+            assert got == want
+        with open(os.path.join(t_dir, "results.json"), encoding="utf-8") as f:
+            assert json.load(f) == got
+    # infer in batches of 4 (3 batches, the last one padded) against greedy
+    if key == "PREDICT_SCORES":
+        answers, scores = t_ex.infer(t_ex.predict_data, 4, 10, return_scores=True)
+        assert len(scores) == len(answers) == len(greedy_answers)
+    else:
+        answers = t_ex.infer(t_ex.predict_data, 4, 10)
+    assert answers == greedy_answers
+    assert t_ex._use_pool_decode() is (key == "EVAL_CONTINUOUS")
+
+
+def get_config_dict(j_config, **over):
+    """The JAX executor's config with ``over`` set."""
+    return type(j_config)({**j_config, **over})
 
 
 def test_single_device_mesh_and_default_knobs_are_accepted():

@@ -2,8 +2,9 @@
 in f32 at tiny widths (``tiny_latr_yaml``): two epochs from the JAX
 executor's initial parameters give the same per-epoch losses, metric dicts,
 eval-mode scores and ``results.json``; ``NUM_FREEZE_EPOCH``'s masters and
-adam moments follow optax's; beam decode raises (CustomizedLaTr and
-PhonemeLaTr); the CLI trains, evaluates and predicts on the CPU.
+adam moments follow optax's; beam decode (``isgreedy: false, num_beam:
+3``) trains, evaluates and predicts as the JAX executor does (CustomizedLaTr
+and PhonemeLaTr); the CLI trains, evaluates and predicts on the CPU.
 
 The helpers here serve the other executor files of the LaTr / PreSTU family
 (``tests/test_torch_phoneme_latr_executor.py``, ``test_torch_prestu_executor.py``,
@@ -281,12 +282,60 @@ def test_freeze_epoch_scales_the_encoder_gradients_like_optax(tmp_path):
     assert n_frozen > 10
 
 
+def check_beam(j_config, t_cfg, j_ex, t_ex, monkeypatch, max_length):
+    """After one epoch of both executors with ``isgreedy: false, num_beam:
+    3``: the epoch's metrics (its eval decodes by beam search), eval mode,
+    ``results.json`` and ``infer`` equal the JAX executor's, and the port's
+    ``infer`` goes through the beam search."""
+    want, got = metrics(j_config.SAVE_PATH), metrics(t_cfg.SAVE_PATH)
+    assert len(got) == len(want) == 1
+    np.testing.assert_allclose(got[0]["train_loss"], want[0]["train_loss"], rtol=LOSS_TOL,
+                               atol=LOSS_TOL)
+    for key in ("F1", "Accuracy", "CIDEr", "ROUGE", "BLEU"):
+        assert got[0][key] == want[0][key], key
+    check_eval((None, j_config, t_cfg, t_ex))
+    j_results = EXECUTORS.get(j_config.EXECUTOR)(j_config, mode="predict",
+                                                 predicttype="best").run()
+    t_results = T_EXECUTORS.get(t_cfg.EXECUTOR)(t_cfg, "predict", predicttype="best",
+                                                device="cpu").run()
+    assert t_results == j_results and set(t_results[0]) == {"gens", "gts"}
+    with open(os.path.join(t_cfg.SAVE_PATH, "results.json"), encoding="utf-8") as f:
+        assert json.load(f) == j_results
+    from phoneme_vqa_torch.models import generate as t_generate
+
+    calls = []
+    for name in ("beam_decode", "multi_head_beam_decode"):
+        fn = getattr(t_generate, name)
+        monkeypatch.setattr(t_generate, name,
+                            lambda *a, fn=fn, **k: calls.append(1) or fn(*a, **k))
+    assert t_ex.infer(t_ex.val_data, 4, max_length) == j_ex.infer(j_ex.val_data, 4, max_length)
+    assert len(calls) == 2  # 6 rows in batches of 4
+
+
+def check_pool(t_ex):
+    """``EVAL_CONTINUOUS``: the pool decode (2 slots, pools of 5 rows)
+    answers as the batch decode does, scores included."""
+    config = t_ex.config
+    want, want_s = t_ex.infer(t_ex.val_data, 4, config.max_eval_length, return_scores=True)
+    config.update(EVAL_CONTINUOUS=True, EVAL_SLOTS=2, EVAL_POOL_ROWS=5)
+    try:
+        assert t_ex._use_pool_decode()
+        got, got_s = t_ex.infer(t_ex.val_data, 4, config.max_eval_length, return_scores=True)
+    finally:
+        for key in ("EVAL_CONTINUOUS", "EVAL_SLOTS", "EVAL_POOL_ROWS"):
+            config.pop(key)
+    assert got == want
+    np.testing.assert_allclose(got_s, want_s, rtol=1e-5, atol=1e-6)
+
+
 @pytest.mark.parametrize("case", LATR_CASES)
-def test_beam_decode_raises(tmp_path, case):
+def test_beam_decode_matches_jax(tmp_path, monkeypatch, case):
     paths = make_latr_fixture(tmp_path)
-    _, t_cfg = configs(paths, str(tmp_path), case, isgreedy=False, num_beam=3)
-    with pytest.raises(NotImplementedError, match="beam.*ROADMAP A11"):
-        T_EXECUTORS.get(t_cfg.EXECUTOR)(t_cfg, "train", device="cpu")
+    j_config, t_cfg, j_ex, t_ex = pair(paths, str(tmp_path / "ck"), case, NUM_EPOCHS=1,
+                                       isgreedy=False, num_beam=3)
+    j_ex.run()
+    t_ex.run()
+    check_beam(j_config, t_cfg, j_ex, t_ex, monkeypatch, j_config.max_eval_length)
 
 
 @pytest.mark.parametrize("case", ("customized_latr",))

@@ -2,7 +2,8 @@
 f32 at tiny widths (``tiny_latr_yaml``: d_model 32, not divisible by 3):
 two epochs from the JAX executor's initial parameters give the same
 per-epoch losses, metric dicts, eval-mode scores and ``results.json``; the
-CLI trains, evaluates and predicts on the CPU; a memorisation gate on
+pool decode over triples answers as the batch decode does; the CLI trains,
+evaluates and predicts on the CPU; a memorisation gate on
 diacritic-correct answers, whose serving-engine answers equal ``infer``'s.
 Helpers in ``tests/test_torch_latr_family_executor.py``.
 """
@@ -19,6 +20,7 @@ from .test_torch_latr_family_executor import (
     case_overrides,
     check_cli,
     check_eval,
+    check_pool,
     check_predict,
     check_two_epochs,
     engine,
@@ -42,6 +44,10 @@ def test_predict_results_json_matches_the_jax_executor(trained):
 
 def test_eval_mode_matches_the_jax_executor(trained):
     check_eval(trained)
+
+
+def test_pool_decode_gives_the_batch_answers(trained):
+    check_pool(trained[3])
 
 
 @pytest.mark.parametrize("case", ("phoneme_latr",))

@@ -3,9 +3,11 @@ f32 at tiny widths (``tiny_sal_yaml``): SaLExecutor, CustomizedSaLExecutor
 (char and BPE answer tokenizers) and PhonemeSaLExecutor, each trained two
 epochs from the JAX executor's initial parameters, give the same per-epoch
 losses, metric dicts and ``results.json``; ``NUM_FREEZE_EPOCH``'s masters
-and adam moments follow optax's; ``SAL_FUSED`` is a knob, not an error; the
-CLI; the serving engine's answers equal ``infer``'s; and a PhonemeSaL
-memorisation gate on diacritic-correct answers.
+and adam moments follow optax's; ``SAL_FUSED`` is a knob, not an error; beam
+decode (CustomizedSaL, char) and the pool decode (every case) answer as
+the JAX executor and the batch decode do; the CLI; the serving engine's
+answers equal ``infer``'s; and a PhonemeSaL memorisation gate on
+diacritic-correct answers.
 """
 
 import json
@@ -32,6 +34,7 @@ from phoneme_vqa_tpu.config import get_config
 from phoneme_vqa_tpu.utils.registry import EXECUTORS
 
 from .fixtures import make_sal_fixture, tiny_sal_yaml
+from .test_torch_latr_family_executor import check_beam, check_pool
 
 LOSS_TOL = 1e-5
 CUSTOM = dict(n_head=4, num_decoder_layers=2, MODEL_MOD_CONFIG_CLASS="CustomizedSaL_config",
@@ -200,10 +203,18 @@ def test_sal_fused_is_a_knob_not_an_error(paths, tmp_path):
         t_attn.enable_sal_fused(saved)
 
 
-def test_beam_decode_raises(paths, tmp_path):
-    _, t_cfg = _config(paths, str(tmp_path), "char", isgreedy=False, num_beam=3)
-    with pytest.raises(NotImplementedError, match="beam.*ROADMAP A11"):
-        T_EXECUTORS.get(t_cfg.EXECUTOR)(t_cfg, "train", device="cpu")
+def test_beam_decode_matches_jax(paths, tmp_path, monkeypatch):
+    """CustomizedSaL (char) with ``isgreedy: false, num_beam: 3`` trains,
+    evaluates and predicts as the JAX executor does."""
+    j_config, t_cfg, j_ex, t_ex = _pair(paths, str(tmp_path), "char", NUM_EPOCHS=1,
+                                        isgreedy=False, num_beam=3)
+    j_ex.run()
+    t_ex.run()
+    check_beam(j_config, t_cfg, j_ex, t_ex, monkeypatch, j_config.max_eval_length)
+
+
+def test_pool_decode_gives_the_batch_answers(trained):
+    check_pool(trained[3])
 
 
 def test_cli_trains_evaluates_and_predicts_phoneme_sal_on_the_cpu(paths, tmp_path):
