@@ -27,9 +27,11 @@ Phases (any failure exits non-zero; nothing is caught and carried past):
     gradients 197 x 197 + scale) in bf16 and f32, and the SaL Function at the SaL
     serving shape and at its training shape (B=16) in both types; every
     input that requires grad gets a finite, nonzero gradient
-4.  full-width LaTr-base (seeded random weights) answers synthetic requests
-    through ServingEngine at batch 32 in bf16; the attention kernel must
-    launch 24 times per batch (12 ViT + 12 T5 encoder layers), the SaL one 0
+4.  full-width LaTr-base (a serve-mode executor, seeded random weights)
+    answers 64 synthetic requests through the gathered ServingEngine at batch
+    32 in bf16, its decode replayed from the bucket's CUDA graphs; the
+    attention kernel must launch 24 times per decoded batch (12 ViT + 12 T5
+    encoder layers), the SaL one 0; one batch's time split on the eager path
 4b. full-width SaL-base (seeded random weights) answers synthetic requests
     the same way; the SaL kernel must launch 12 times per batch (every
     encoder layer), the attention kernel 0
@@ -130,6 +132,27 @@ Phases (any failure exits non-zero; nothing is caught and carried past):
     SEED draws the same tokens, two calls draw others, TOP_K 5 draws lie in
     each step's five highest logits; PREDICT_SCORES through predict() gives
     confidences within 1e-6 of exp(greedy's scores)
+14. the gathered ServingEngine (buckets 1, 4, 32) over LaTr-base and
+    PhonemeLaTr-base: every bucket's replayed rows bit for bit the eager
+    generate's, and 256 requests from 8 client threads answered as
+    executor.infer answers them, in bf16 and f32; 24 attention launches per
+    decoded batch; the capture time and peak memory per bucket, answers/s
+    under the flood (beside the eager infer's), p50 / p99 latency alone and
+    under the flood, the device busy share of a flood window (profiler)
+15. the ContinuousEngine (32 slots, one CUDA graph replay a dispatch) over
+    LaTr-base on a grid of horizon x prefill chunk (4, 8, 16 x 8, 16: the
+    CLI's defaults), then PhonemeSaL-base (12 SaL launches a prefill) at the
+    grid's best point: launches per prefill chunk, the phase-14 timings, f32
+    answers equal infer's, bf16 rows equal greedy's but at near-ties (twice
+    the measured window-step logit gap), a mid-stream join
+16. faults, both engines (LaTr-base widths, 2 layers each): a hung dispatch
+    fails the in-flight futures within the 2 s stall timeout and stop()
+    returns; an expired request resolves TimeoutError; reload then answer
+    equals a fresh engine on the new weights
+17. python -m phoneme_vqa_torch.serve at full width (LaTr-base, a JSON
+    config): --prime with a kernel store (--aot) exits 0; a stdin/stdout
+    round trip loads the store; an HTTP server answers /answer, /stats,
+    /metrics, /healthz, then drains on SIGTERM and exits 0
 
 Prints the run's total seconds, a {"kernels": [...]} line, the card line, and last
 {"ok": true, "device": {...}}. Needs the repo's phoneme_vqa_torch package;
@@ -143,10 +166,15 @@ import json
 import os
 import re
 import shutil
+import signal
+import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
 
 import numpy as np
 import torch
@@ -156,18 +184,11 @@ if not torch.cuda.is_available():
 
 from phoneme_vqa_torch.config import Config  # noqa: E402
 from phoneme_vqa_torch.data import synthetic  # noqa: E402
-from phoneme_vqa_torch.data.adapters import textlayout_obj_adapt  # noqa: E402
-from phoneme_vqa_torch.data.adapters import textlayout_ocr_adapt  # noqa: E402
 from phoneme_vqa_torch.data.loader import batch_iterator  # noqa: E402
 from phoneme_vqa_torch.decode import beam as beam_mod  # noqa: E402
 from phoneme_vqa_torch.decode.greedy import greedy_decode, multi_head_greedy_decode  # noqa: E402
 from phoneme_vqa_torch.decode.speculative import speculative_greedy_decode  # noqa: E402
 from phoneme_vqa_torch.models import custom_decoder as custom_decoder_mod  # noqa: E402
-from phoneme_vqa_torch.models import customized as customized_mod  # noqa: E402
-from phoneme_vqa_torch.models import latr as latr_mod  # noqa: E402
-from phoneme_vqa_torch.models import phoneme as phoneme_mod  # noqa: E402
-from phoneme_vqa_torch.models import prestu as prestu_mod  # noqa: E402
-from phoneme_vqa_torch.models import sal as sal_mod  # noqa: E402
 from phoneme_vqa_torch.models import t5 as t5_mod  # noqa: E402
 from phoneme_vqa_torch.models import vit as vit_mod  # noqa: E402
 from phoneme_vqa_torch.ops import _build  # noqa: E402
@@ -175,7 +196,8 @@ from phoneme_vqa_torch.ops import attention as attn_mod  # noqa: E402
 from phoneme_vqa_torch.ops import flash_attention as fa  # noqa: E402
 from phoneme_vqa_torch.ops import layout  # noqa: E402
 from phoneme_vqa_torch.ops import sal_fused_attention as sfa  # noqa: E402
-from phoneme_vqa_torch.serving import SaLInputs, ServingEngine, featurize_requests  # noqa: E402
+from phoneme_vqa_torch.serving import ContinuousEngine, GraphDecoder, ServingEngine  # noqa: E402
+from phoneme_vqa_torch.serving.graphs import decoder_bytes  # noqa: E402
 from phoneme_vqa_torch.models.generate import build_generate_fn, decode_token_ids  # noqa: E402
 from phoneme_vqa_torch.models.generate import make_beam_generate_fn  # noqa: E402
 from phoneme_vqa_torch.models.generate import make_multi_head_beam_generate_fn  # noqa: E402
@@ -183,7 +205,6 @@ from phoneme_vqa_torch.phonology.analyze import CODAS, NUCLEI, ONSETS, TONE_VI  
 from phoneme_vqa_torch.phonology.analyze import is_vietnamese_3  # noqa: E402
 from phoneme_vqa_torch.phonology.compose import compose_word  # noqa: E402
 from phoneme_vqa_torch.tokenizers import PhonemeTokenizer, StructuredPhonemeTokenizer  # noqa: E402
-from phoneme_vqa_torch.tokenizers.backbone import FallbackSubwordTokenizer  # noqa: E402
 from phoneme_vqa_torch.train import (  # noqa: E402
     CustomizedLaTrExecutor,
     CustomizedPreSTUExecutor,
@@ -195,6 +216,7 @@ from phoneme_vqa_torch.train import (  # noqa: E402
     SaLExecutor,
 )
 from phoneme_vqa_torch.train import state as train_state  # noqa: E402
+from phoneme_vqa_torch.utils.registry import EXECUTORS  # noqa: E402
 
 DEVICE = torch.device("cuda")
 BATCH = 32
@@ -674,102 +696,84 @@ def latr_fixture(root):
                                        image_hw=FULL["vit_image_size"])
 
 
-def latr_engine(model, tokenizer, paths, **kw):
-    """LaTr- and PreSTU-family serving (the engine fuses question and OCR
-    for a PreSTU model); ``kw``: the answer tokenizer of a custom or
-    phoneme decoder."""
-    return ServingEngine(
-        model, tokenizer, textlayout_ocr_adapt(paths["ocr"]), paths["img"],
-        batch_size=BATCH, max_answer_length=MAX_ANSWER, max_ocr_element=OCR_ELEMENTS,
-        max_ocr_length=OCR_LEN, max_q_length=Q_LEN, **kw,
-    )
-
-
 def sal_fixture(root):
     return synthetic.make_sal_fixture(root, n_images=8, n_rows=12, n_ocr_words=SAL_OCR_ELEMENTS,
                                       region_hidden=SAL_FULL["obj_hidden"])
 
 
-def sal_engine(model, tokenizer, paths, **kw):
-    # the SaL executor adapts both feature stores with scale 1 (boxes in [0, 1])
-    sal = SaLInputs(
-        textlayout_obj_adapt(paths["obj_features"], 1, 1), paths["ocr_features"],
-        paths["obj_features"], ocr_hidden=SAL_FULL["ocr_hidden"],
-        obj_hidden=SAL_FULL["obj_hidden"], max_obj_element=SAL_OBJ_ELEMENTS,
-        max_obj_length=SAL_OBJ_LEN,
-    )
-    return ServingEngine(
-        model, tokenizer, textlayout_ocr_adapt(paths["ocr_features"], 1, 1), None,
-        batch_size=BATCH, max_answer_length=kw.pop("max_answer_length", MAX_ANSWER),
-        max_ocr_element=SAL_OCR_ELEMENTS, max_ocr_length=SAL_FULL["max_ocr_length"],
-        max_q_length=SAL_FULL["max_q_length"], sal=sal, **kw,
-    )
+def serve_executor(config):
+    """``config``'s executor in serve mode on the card (no QA CSV read), its
+    random init drawn from ``SEED``: the values ``build_latr`` and
+    ``build_sal`` give."""
+    ex = EXECUTORS.get(config.EXECUTOR)(config, "serve", device=DEVICE)
+    ex._ensure_params()
+    ex.model.eval()  # no dropout in the phases' own forwards either
+    return ex
 
 
-def phoneme_engine(model, tokenizer, paths):
-    """PhonemeSaL serving: answers of 40 ids decoded by the phoneme tokenizer."""
-    return sal_engine(model, tokenizer, paths, max_answer_length=PSAL_ANSWER,
-                      answer_tokenizer=PhonemeTokenizer())
-
-
-def build_phoneme_sal(dtype):
-    """Full-width PhonemeSaL-base with seeded random weights; the decoder's
-    vocabulary and ids are the phoneme tokenizer's."""
-    tok = PhonemeTokenizer()
-    config = dict(PSAL_FULL, DTYPE=dtype)
-    cfg = customized_mod.CustomizedSaL_config().build(config, len(tok), tok.pad_id, tok.bos_id,
-                                                      tok.eos_id)
-    return sal_mod.build_sal(config, DEVICE, SEED, phoneme_mod.PhonemeSaL, cfg)
-
-
-def requests():
+def requests(n=N_REQUESTS):
     return [(float(i % 8), synthetic.QUESTIONS[i % len(synthetic.QUESTIONS)])
-            for i in range(N_REQUESTS)]
+            for i in range(n)]
 
 
-def first_batch(engine, reqs):
-    """The first serving batch of ``reqs``, featurized and on the card."""
-    dataset = featurize_requests(engine.tokenizer, engine.ocr_store, engine.base_img_path,
-                                 reqs[:BATCH], **engine.featurize_args)
-    batch, _ = next(batch_iterator(dataset, BATCH))
-    return latr_mod.to_device_batch(batch, DEVICE, engine.batch_keys)
+def request_dataset(ex, reqs):
+    """``reqs`` featurized by the executor against its feature stores."""
+    rows = [{"image_id": i, "question": q, "answer": ""} for i, q in reqs]
+    return ex._make_dataset(rows, *[s for s in ex.serve_frames if s is not None])
+
+
+def first_batch(ex, reqs, n=BATCH):
+    """The first ``n`` requests of ``reqs``, featurized and on the card."""
+    batch, _ = next(batch_iterator(request_dataset(ex, reqs[:n]), n))
+    return ex._device_batch(batch)
+
+
+def answer_all(engine, reqs):
+    futures = [engine.submit(i, q) for i, q in reqs]
+    return [f.result(timeout=FUTURE_TIMEOUT) for f in futures]
 
 
 def serve(phase, title, engine, reqs, per_batch: dict) -> dict:
-    """``engine`` answers ``reqs``; ``per_batch`` is each kernel's launches
-    per batch. An engine with an answer tokenizer (the phoneme decoder) must
-    answer recomposed words, never phoneme or tone tokens."""
-    model = engine.model
+    """The gathered engine (``ServingEngine``, its decode replayed from the
+    bucket's CUDA graphs) answers ``reqs``; ``per_batch`` is each kernel's
+    launches per decoded batch. An executor with an answer tokenizer (the
+    phoneme decoders) must answer recomposed words, never phoneme or tone
+    tokens. Then one batch's time split on the eager path (featurize,
+    encode, the eager generate), as the synchronous engine ran it."""
+    ex = engine.executor
+    model = ex.model
     max_answer = engine.max_answer_length
-    engine.answer(reqs[:BATCH])  # warm-up: cuBLAS handles, allocator pools
+    answer_all(engine, reqs[:BATCH])  # warm-up: cuBLAS handles, allocator pools
     torch.cuda.synchronize()
 
+    batches0 = engine.stats()["batches"]
     reset_launches()
     t0 = time.perf_counter()
-    answers = engine.answer(reqs)
+    answers = answer_all(engine, reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     got = launches()
+    n_batches = engine.stats()["batches"] - batches0
 
-    n_batches = -(-len(reqs) // BATCH)
     if len(answers) != len(reqs) or not all(isinstance(a, str) for a in answers):
         raise AssertionError(f"{phase}: {len(answers)} answers for {len(reqs)} requests")
-    if engine.answer_tokenizer is not None and has_special_tokens(answers):
+    if hasattr(ex, "decode_tokenizer") and has_special_tokens(answers):
         raise AssertionError(f"{phase}: special tokens in the decoded answers {answers[:4]}")
     check_launches(phase, got, {k: n * n_batches for k, n in per_batch.items()})
     ms_per_batch = 1e3 * wall / n_batches
 
     # split one batch's time: featurize on the host, encode (fuse, encoders,
-    # cache), decode loop
+    # cache), the eager decode loop
+    generate = ex._get_generate_fn(max_answer)
     t0 = time.perf_counter()
-    tb = first_batch(engine, reqs)
+    tb = first_batch(ex, reqs)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     with torch.inference_mode():
         model.encode_for_generate(tb, max_answer)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    out = engine.generate(tb)
+    out = generate(tb)
     torch.cuda.synchronize()
     t3 = time.perf_counter()
     eos = decode_token_ids(model)[1]
@@ -781,13 +785,13 @@ def serve(phase, title, engine, reqs, per_batch: dict) -> dict:
         "generate_ms": 1e3 * (t3 - t2), "decode_ms": 1e3 * ((t3 - t2) - (t2 - t1)),
         "decode_steps_max": steps,
     }
-    split.update(profile_generate(engine.generate, tb, split["generate_ms"]))
-    log(f"{phase}: {len(answers)} answers in {n_batches} batches of {BATCH} (bf16, full-width "
-        f"{title}): {ms_per_batch:.3f} ms/batch, {len(answers) / wall:.3f} answers/s; kernel "
-        f"launches {got} = {per_batch} x {n_batches}; device kernel launches per batch "
-        f"(profiler, one generate) {split['device_kernel_launches']}; one batch split "
-        f"{json.dumps(split)}; "
-        f"sample answers {answers[:3]}")
+    split.update(profile_generate(generate, tb, split["generate_ms"]))
+    log(f"{phase}: {len(answers)} answers in {n_batches} batches of {BATCH} through the gathered "
+        f"engine's graphs (bf16, full-width {title}): {ms_per_batch:.3f} ms/batch, "
+        f"{len(answers) / wall:.3f} answers/s; kernel launches {got} = {per_batch} x "
+        f"{n_batches}; the eager generate's device kernel launches per batch (profiler) "
+        f"{split['device_kernel_launches']}; one batch split on the eager path "
+        f"{json.dumps(split)}; sample answers {answers[:3]}")
     return {"launches": got, "ms_per_batch": ms_per_batch,
             "answers_per_s": len(answers) / wall, "n_answers": len(answers), **split}
 
@@ -947,22 +951,25 @@ def check_end_to_end_f32(phase, model, tb, want_launches: dict,
     return {"logits_max_abs_err": logits_err, "greedy_rows_parted": parted}
 
 
-def run_family(phase, title, build, fixture, make_engine, tokenizer, per_batch, e2e_launches,
-               root, **e2e_kw):
-    """Serve at bf16 (phase ``phase``), then check f32 end to end (the next
-    phase) on the first serving batch (``e2e_kw``: the decoder's vocabulary
-    and answer length)."""
+def run_family(phase, title, make_ex, fixture, per_batch, e2e_launches, root,
+               max_answer=MAX_ANSWER, **e2e_kw):
+    """Serve at bf16 through the gathered engine (phase ``phase``), then check
+    f32 end to end (the next phase) on the first serving batch.
+    ``make_ex(paths, dtype)``: the family's serve-mode executor on the
+    fixture; ``e2e_kw``: the decoder's vocabulary."""
     reqs = requests()
     paths = fixture(root)
-    engine = make_engine(build(dtype="bfloat16"), tokenizer, paths)
-    served = serve(f"phase {phase}", title, engine, reqs, per_batch)
-    del engine
+    ex = make_ex(paths, "bfloat16")
+    with ServingEngine(ex, *ex.serve_frames, batch_size=BATCH, max_wait_ms=20,
+                       max_answer_length=max_answer) as engine:
+        served = serve(f"phase {phase}", title, engine, reqs, per_batch)
+    del ex, engine
     torch.cuda.empty_cache()
-    model = build(dtype="float32")
-    engine = make_engine(model, tokenizer, paths)
-    e2e = check_end_to_end_f32(f"phase {phase.replace('4', '5')}", model,
-                               first_batch(engine, reqs), e2e_launches, **e2e_kw)
-    del model, engine
+    ex = make_ex(paths, "float32")
+    e2e = check_end_to_end_f32(f"phase {phase.replace('4', '5')}", ex.model,
+                               first_batch(ex, reqs), e2e_launches, max_answer=max_answer,
+                               **e2e_kw)
+    del ex
     torch.cuda.empty_cache()
     return served, e2e
 
@@ -1729,29 +1736,6 @@ def structured_tokenizer(root):
     return tok, vocab_path, ann
 
 
-def build_phoneme_latr(tok, dtype):
-    """Full-width PhonemeLaTr-base with seeded random weights, its config as
-    ``PhonemeLaTrExecutor`` builds it from configs/phonemelatr.yaml: the
-    LaTr-base encoder (frozen ViT) and a 4-layer triple decoder over the
-    structured vocabulary."""
-    config = dict(LATR_CUSTOM_FULL, DTYPE=dtype)
-    base = customized_mod.CustomizedLaTr_config().build(config)
-    cfg = phoneme_mod.PhonemeLaTrConfig(
-        t5=base.t5, vit=base.vit, max_2d_position_embeddings=base.max_2d_position_embeddings,
-        freeze_vit=True, phoneme_decoder=phoneme_mod.phoneme_decoder_from_yaml(
-            config, base.t5, tok.onset_size, tok.rhyme_size, tok.tone_size, tok.pad_id,
-            tok.bos_id, tok.eos_id))
-    return latr_mod.build_latr(config, DEVICE, SEED, phoneme_mod.PhonemeLaTr, cfg)
-
-
-def build_prestu(dtype):
-    """Full-width PreSTU-base (configs/prestu.yaml) with seeded random
-    weights: vit5-base + ViT-base over [ViT patches | question + OCR]."""
-    config = dict(FULL, DTYPE=dtype)
-    return latr_mod.build_latr(config, DEVICE, SEED, prestu_mod.PreSTU,
-                               prestu_mod.PreSTU_config().build(config))
-
-
 def family_train_config(paths, save_path, kind, **over) -> Config:
     """The presets of the LaTr family at full width on the synthetic LaTr
     fixture (``latr_train_config``'s keys): ``kind`` "phoneme_latr"
@@ -2278,6 +2262,481 @@ def sampling_phase(paths, root) -> dict:
 
 
 
+# -- phases 14-17: the online serving engines ----------------------------------
+
+FUTURE_TIMEOUT = 300  # seconds a request may take before the run fails
+FLOOD_REQUESTS = 256
+CLIENTS = 8
+LONE_REQUESTS = 16
+BUCKETS = [1, 4, BATCH]
+BUSY_REQUESTS = 64  # the flood window the profiler traces
+CONT_REQUESTS = 128
+# phase 15's grid: decode steps a dispatch x rows a prefill, at BATCH slots
+CONT_GRID = [(h, c) for h in (4, 8, 16) for c in (8, 16)]
+STALL_TIMEOUT_S = 2.0
+
+
+def percentile(values, p):
+    v = sorted(values)
+    return v[min(len(v) - 1, int(p * len(v)))]
+
+
+def flood(engine, reqs, clients=CLIENTS):
+    """``reqs`` submitted from ``clients`` threads at once, each submitting
+    its share back to back: (answers in request order, wall s, each
+    request's submit -> resolution ms)."""
+    answers, done_at, sent_at = [None] * len(reqs), [None] * len(reqs), [None] * len(reqs)
+    errors = []
+
+    def client(k):
+        try:
+            futures = []
+            for j in range(k, len(reqs), clients):
+                sent_at[j] = time.perf_counter()
+                f = engine.submit(*reqs[j])
+                f.add_done_callback(lambda _, j=j: done_at.__setitem__(j, time.perf_counter()))
+                futures.append((j, f))
+            for j, f in futures:
+                answers[j] = f.result(timeout=FUTURE_TIMEOUT)
+        except Exception as e:  # reported on the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=2 * FUTURE_TIMEOUT)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"flood: a client failed: {errors[:1]}")
+    return answers, wall, [1e3 * (d - s) for d, s in zip(done_at, sent_at)]
+
+
+def lone_latencies(engine, reqs, n=LONE_REQUESTS):
+    """ms of ``n`` requests sent one at a time (each waits for the last)."""
+    out = []
+    for i, q in reqs[:n]:
+        t0 = time.perf_counter()
+        engine.answer(i, q, timeout=FUTURE_TIMEOUT)
+        out.append(1e3 * (time.perf_counter() - t0))
+    return out
+
+
+def flood_busy_share(engine, reqs) -> dict:
+    """The device's busy share of a flood window: CUDA kernel time under
+    torch.profiler over the host-clock wall of the same flood unprofiled
+    (the profiler's own cost stretches the traced wall)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    _, wall, _ = flood(engine, reqs)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        flood(engine, reqs)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    return {"flood_window_requests": len(reqs), "flood_window_ms": 1e3 * wall,
+            "device_busy_ms": busy_ms, "device_busy_share": busy_ms / (1e3 * wall),
+            "device_kernel_launches": sum(e.count for e in kernels)}
+
+
+def latency_summary(prefix, lats) -> dict:
+    return {f"{prefix}_p50_ms": percentile(lats, 0.5), f"{prefix}_p99_ms": percentile(lats, 0.99)}
+
+
+def capture_costs(ex, reqs, max_answer=MAX_ANSWER) -> dict:
+    """Per bucket: the seconds to capture its decode graphs (a fresh
+    ``GraphDecoder`` on a side stream) and the peak device memory above
+    what was allocated before, with its static buffers' bytes."""
+    out = {}
+    stream = torch.cuda.Stream()
+    for b in BUCKETS:
+        tb = first_batch(ex, reqs, b)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with torch.cuda.stream(stream):
+            decoder = GraphDecoder(ex.model, tb, max_answer, False, torch.cuda.graph_pool_handle())
+        torch.cuda.synchronize()
+        out[str(b)] = {"capture_s": time.perf_counter() - t0, "graphs": len(decoder.graphs),
+                       "peak_bytes_above_base": torch.cuda.max_memory_allocated() - base,
+                       "static_buffer_bytes": decoder_bytes(decoder)}
+        del decoder, tb
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_bucket_rows(phase, engine, ex, reqs, max_answer=MAX_ANSWER) -> None:
+    """Each bucket's replayed rows equal the eager generate's bit for bit
+    (the engine idle: its static buffers are free)."""
+    generate = ex._get_generate_fn(max_answer)
+    for b in engine.buckets:
+        tb = first_batch(ex, reqs, b)
+        want = generate(tb)
+        with engine._stream.scope():
+            got = engine._decoders[b].start(tb)()
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"{phase}: bucket {b}: replayed rows differ from the eager "
+                                 f"generate's ({int((got != want).sum())} tokens)")
+
+
+def gathered_phase(title, make_ex, paths, per_batch: dict) -> dict:
+    """Phase 14 for one model (see the module docstring)."""
+    phase = "phase 14"
+    reqs = requests(FLOOD_REQUESTS)
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        ex = make_ex(paths, dtype)
+        costs = capture_costs(ex, reqs) if dtype == "bfloat16" else None
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        engine = ServingEngine(ex, *ex.serve_frames, batch_size=BATCH, max_wait_ms=5,
+                               max_answer_length=MAX_ANSWER, buckets=BUCKETS)
+        start_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        with engine:
+            check_bucket_rows(f"{phase} {title} {dtype}", engine, ex, reqs)
+            dataset = request_dataset(ex, reqs)
+            t0 = time.perf_counter()
+            want = ex.infer(dataset, BATCH, MAX_ANSWER)  # the eager, synchronous path
+            torch.cuda.synchronize()
+            sync_s = time.perf_counter() - t0
+            flood(engine, reqs[:BATCH])  # warm-up
+            batches0 = engine.stats()["batches"]
+            reset_launches()
+            answers, wall, lats = flood(engine, reqs)
+            got = launches()
+            n_batches = engine.stats()["batches"] - batches0
+            check_launches(f"{phase} {title} {dtype}", got,
+                           {k: n * n_batches for k, n in per_batch.items()})
+            if answers != want:
+                bad = sum(a != w for a, w in zip(answers, want))
+                raise AssertionError(f"{phase}: {title} {dtype}: {bad} answers differ from "
+                                     "executor.infer's")
+            row = {"engine_start_s": start_s, "capture_s": engine.capture_s,
+                   "peak_bytes_above_base": peak, "flood_requests": len(reqs),
+                   "flood_clients": CLIENTS, "flood_batches": n_batches,
+                   "answers_per_s": len(reqs) / wall, **latency_summary("flood", lats),
+                   "sync_infer_answers_per_s": len(reqs) / sync_s,
+                   "sync_infer_ms_per_batch": 1e3 * sync_s / -(-len(reqs) // BATCH),
+                   "launches": got}
+            if dtype == "bfloat16":
+                row["capture_costs"] = costs
+                row.update(latency_summary("lone", lone_latencies(engine, reqs)))
+                row.update(flood_busy_share(engine, reqs[:BUSY_REQUESTS]))
+                row["bucket_batches"] = engine.stats()["bucket_batches"]
+        out[dtype] = row
+        del ex, engine
+        torch.cuda.empty_cache()
+    b = out["bfloat16"]
+    log(f"{phase}: {title} gathered engine, buckets {BUCKETS} ({card_line()}): rows of every "
+        f"bucket replayed bit for bit as the eager generate's, and {FLOOD_REQUESTS} answers from "
+        f"{CLIENTS} clients equal to executor.infer's, in bf16 and f32; bf16 flood "
+        f"{b['answers_per_s']:.3f} answers/s (eager infer {b['sync_infer_answers_per_s']:.3f}), "
+        f"p50/p99 {b['flood_p50_ms']:.3f}/{b['flood_p99_ms']:.3f} ms, lone "
+        f"{b['lone_p50_ms']:.3f}/{b['lone_p99_ms']:.3f} ms, busy share "
+        f"{b['device_busy_share']:.3f}; capture s {json.dumps(b['capture_s'])}; "
+        f"{json.dumps(out)}")
+    return out
+
+
+def rows_engine(engine):
+    """Within the block the engine's executor detokenizes nothing: answers
+    are the token rows (the continuous engine's per-slot rows)."""
+    ex = engine.executor
+
+    class _Rows:
+        def __enter__(self):
+            ex._decode_rows = lambda rows: rows
+
+        def __exit__(self, *exc):
+            del ex._decode_rows
+
+    return _Rows()
+
+
+def continuous_run(engine, reqs) -> dict:
+    """One configuration: flood, lone requests; launches per prefill."""
+    flood(engine, reqs[:BATCH])  # warm-up
+    s0 = engine.stats()
+    reset_launches()
+    _, wall, lats = flood(engine, reqs)
+    got = launches()
+    s1 = engine.stats()
+    return {"answers_per_s": len(reqs) / wall, **latency_summary("flood", lats),
+            **latency_summary("lone", lone_latencies(engine, reqs, 8)),
+            "dispatches": s1["decode_dispatches"] - s0["decode_dispatches"],
+            "prefill_chunks": s1["prefill_chunks"] - s0["prefill_chunks"],
+            "slot_occupancy": s1["slot_occupancy"], "launches": got}
+
+
+def check_continuous_identity(phase, title, ex, engine, reqs, max_answer, dtype) -> dict:
+    """f32: answers equal ``infer``'s; bf16: rows equal the eager greedy
+    rows but where the greedy step's top-2 margin is within twice the
+    measured gap between the one-token window step and the one-token step."""
+    dataset = request_dataset(ex, reqs)
+    if dtype == "float32":
+        want = ex.infer(dataset, BATCH, max_answer)
+        got = answer_all(engine, reqs)
+        if got != want:
+            raise AssertionError(f"{phase}: {title}: f32 continuous answers differ from infer's")
+        return {"answers_equal": True}
+    parted, gap = 0, 0.0
+    with rows_engine(engine):
+        rows = answer_all(engine, reqs)
+    for j, (batch, n_valid) in enumerate(batch_iterator(dataset, BATCH)):
+        tb = ex._device_batch(batch)
+        with torch.inference_mode():
+            r, seen = greedy_recorded(ex.model, tb, max_answer)
+        g = step_k_logit_gap(ex.model.eval(), tb, r, seen, 1)
+        gap = max(gap, g)
+        parted += tie_parted(f"{phase} {title} bf16", rows[j * BATCH:j * BATCH + n_valid],
+                             r.tolist()[:n_valid], seen,
+                             margin_allowed=max(TIE_MARGIN, 2 * g))[0]
+    return {"rows_parted": parted, "step_k_logit_gap": gap}
+
+
+def continuous_phase(title, make_ex, paths, per_prefill: dict, grid, max_answer=MAX_ANSWER):
+    """Phase 15 for one model (see the module docstring): the grid in bf16
+    (each point's capture, flood and lone numbers), the best point's busy
+    share, a mid-stream join, and identity in f32 and bf16."""
+    phase = "phase 15"
+    reqs = requests(CONT_REQUESTS)
+    out = {"grid": {}}
+    ex = make_ex(paths, "bfloat16")
+    for horizon, chunk in grid:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with ContinuousEngine(ex, *ex.serve_frames, num_slots=BATCH, prefill_chunk=chunk,
+                              horizon=horizon, max_answer_length=max_answer,
+                              max_queue=0) as engine:
+            row = {"capture_s": engine.capture_s,
+                   "peak_bytes_above_base": torch.cuda.max_memory_allocated() - base,
+                   **continuous_run(engine, reqs)}
+        check_launches(f"{phase} {title} h{horizon} c{chunk}", row["launches"],
+                       {k: n * row["prefill_chunks"] for k, n in per_prefill.items()})
+        out["grid"][f"{horizon}x{chunk}"] = row
+    best = max(out["grid"], key=lambda k: out["grid"][k]["answers_per_s"])
+    horizon, chunk = (int(x) for x in best.split("x"))
+    out["best"] = best
+    for dtype in ("bfloat16", "float32"):
+        if dtype == "float32":
+            del ex
+            torch.cuda.empty_cache()
+            ex = make_ex(paths, dtype)
+        with ContinuousEngine(ex, *ex.serve_frames, num_slots=BATCH, prefill_chunk=chunk,
+                              horizon=horizon, max_answer_length=max_answer,
+                              max_queue=0) as engine:
+            out[dtype] = check_continuous_identity(phase, title, ex, engine, reqs[:2 * BATCH],
+                                                   max_answer, dtype)
+            if dtype == "bfloat16":
+                out[dtype].update(flood_busy_share(engine, reqs[:BUSY_REQUESTS]))
+            else:  # a mid-stream join: later requests join the decode of earlier ones
+                want = ex.infer(request_dataset(ex, reqs[:16]), BATCH, max_answer)
+                first = [engine.submit(*r) for r in reqs[:8]]
+                time.sleep(0.02)
+                later = [engine.submit(*r) for r in reqs[8:16]]
+                got = [f.result(timeout=FUTURE_TIMEOUT) for f in first + later]
+                if got != want:
+                    raise AssertionError(f"{phase}: {title}: a mid-stream join parted")
+                out[dtype]["mid_stream_join_equal"] = True
+    del ex
+    torch.cuda.empty_cache()
+    b = out["grid"][best]
+    log(f"{phase}: {title} continuous engine, {BATCH} slots ({card_line()}): best of the grid "
+        f"{best} (horizon x prefill chunk): {b['answers_per_s']:.3f} answers/s under a flood of "
+        f"{CONT_REQUESTS} from {CLIENTS} clients, p50/p99 {b['flood_p50_ms']:.3f}/"
+        f"{b['flood_p99_ms']:.3f} ms, lone {b['lone_p50_ms']:.3f}/{b['lone_p99_ms']:.3f} ms; "
+        f"f32 answers equal infer's, bf16 rows parted {out['bfloat16']['rows_parted']} "
+        f"(near-ties); {json.dumps(out)}")
+    return out
+
+
+def fault_phase(paths, root) -> dict:
+    """Phase 16: a hung dispatch fails the in-flight futures within the
+    stall timeout; an expired request resolves TimeoutError; a reload then
+    answers as a fresh engine on the new weights does. LaTr-base widths,
+    two layers each (depth cut: the faults need no depth)."""
+    phase = "phase 16"
+    save = os.path.join(root, "fault_ckpts")
+    config = latr_train_config(paths, save, num_encoder_layers=2, num_t5_decoder_layers=2,
+                               vit_num_layers=2)
+    ex = serve_executor(config)
+    reqs = requests(BATCH)
+    out = {}
+    for kind in ("gathered", "continuous"):
+        release = threading.Event()
+        if kind == "gathered":
+            engine = ServingEngine(ex, *ex.serve_frames, batch_size=BATCH, max_wait_ms=5,
+                                   max_answer_length=MAX_ANSWER, stall_timeout_s=STALL_TIMEOUT_S)
+            real = ex.infer_async
+
+            def hung(*a, **kw):
+                resolve = real(*a, **kw)
+                return lambda: (release.wait(), resolve())[1]
+
+            ex.infer_async = hung
+        else:
+            engine = ContinuousEngine(ex, *ex.serve_frames, num_slots=BATCH, prefill_chunk=8,
+                                      horizon=8, max_answer_length=MAX_ANSWER,
+                                      stall_timeout_s=STALL_TIMEOUT_S)
+            real = engine._dispatch
+            engine._dispatch = lambda *a: (release.wait(), real(*a))[1]
+        t0 = time.perf_counter()
+        futures = [engine.submit(*r) for r in reqs[:4]]
+        for f in futures:
+            try:
+                f.result(timeout=FUTURE_TIMEOUT)
+                raise AssertionError(f"{phase}: {kind}: a hung dispatch answered")
+            except RuntimeError as e:
+                if "device stall" not in str(e):
+                    raise
+        failed_s = time.perf_counter() - t0
+        if failed_s > STALL_TIMEOUT_S + 2.0 or engine.unhealthy_reason is None:
+            raise AssertionError(f"{phase}: {kind}: in-flight futures failed after {failed_s} s "
+                                 f"(stall timeout {STALL_TIMEOUT_S})")
+        t0 = time.perf_counter()
+        engine.stop()
+        stop_s = time.perf_counter() - t0
+        release.set()  # the abandoned thread finishes its dispatch and sees the stall
+        if kind == "gathered":
+            ex.infer_async = real
+            engine._resolver.join(timeout=FUTURE_TIMEOUT)
+        else:
+            engine._worker.join(timeout=FUTURE_TIMEOUT)
+        out[kind] = {"stall_failed_after_s": failed_s, "stop_s": stop_s}
+    # expiry, then reload == a fresh engine on the new weights
+    ex.ckpt.save("best", {"params": ex.state.params, "best_score": 0.0})
+    other = dict(config, SEED=SEED + 1)
+    fresh = serve_executor(Config(other))
+    fresh.ckpt.save("last", {"params": fresh.state.params, "best_score": 0.0})
+    for kind in ("gathered", "continuous"):
+        served = serve_executor(config)
+        served._load_trained_checkpoint("best")
+        make = (lambda e: ServingEngine(e, *e.serve_frames, batch_size=BATCH, max_wait_ms=5,
+                                        max_answer_length=MAX_ANSWER)) if kind == "gathered" \
+            else (lambda e: ContinuousEngine(e, *e.serve_frames, num_slots=BATCH,
+                                             prefill_chunk=8, horizon=8,
+                                             max_answer_length=MAX_ANSWER))
+        with make(served) as engine:
+            try:
+                engine.submit(*reqs[0], deadline_s=-1.0).result(timeout=FUTURE_TIMEOUT)
+                raise AssertionError(f"{phase}: {kind}: an expired request answered")
+            except TimeoutError:
+                pass
+            before = answer_all(engine, reqs)
+            info = engine.reload("last")
+            after = answer_all(engine, reqs)
+        newer = serve_executor(Config(other))
+        with make(newer) as engine:
+            want = answer_all(engine, reqs)
+        if after != want or after == before:
+            raise AssertionError(f"{phase}: {kind}: after the reload the answers are not a fresh "
+                                 "engine's on the new weights")
+        out[kind].update(expired_timeout=True, reload_ms=info["ms"], reload_equal_fresh=True)
+        del served, newer
+        torch.cuda.empty_cache()
+    log(f"{phase}: faults (LaTr-base widths, 2 layers each): a hung dispatch fails the "
+        f"in-flight futures within the {STALL_TIMEOUT_S} s stall timeout and stop() returns, an "
+        f"expired request resolves TimeoutError, reload then answer == a fresh engine on the "
+        f"new weights, in both engines: {json.dumps(out)}")
+    return out
+
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+
+def _serve_cli(*args, **kw):
+    return subprocess.run([sys.executable, "-m", "phoneme_vqa_torch.serve", *args], cwd=REPO,
+                          capture_output=True, text=True, timeout=600, **kw)
+
+
+def cli_phase(paths, root) -> dict:
+    """Phase 17: ``python -m phoneme_vqa_torch.serve`` at full width
+    (LaTr-base, its config as JSON): ``--prime`` with a kernel store exits
+    0, a stdin/stdout round trip loads that store, and an HTTP server
+    answers /answer, /stats, /metrics and /healthz, then drains on SIGTERM
+    and exits 0."""
+    phase = "phase 17"
+    cfg_path = os.path.join(root, "latr_base_serve.json")
+    with open(cfg_path, "w", encoding="utf-8") as f:
+        json.dump(dict(latr_train_config(paths, os.path.join(root, "cli_ckpts"))), f)
+    store = os.path.join(root, "kernel_store")
+    base = ["--config-file", cfg_path, "--ckpt", "none", "--max-length", str(MAX_ANSWER),
+            "--aot", store]
+    out = {}
+    t0 = time.perf_counter()
+    r = _serve_cli(*base, "--prime", "--buckets", "1,4")
+    out["prime_s"] = time.perf_counter() - t0
+    if r.returncode != 0 or "primed" not in r.stderr or \
+            not os.path.isfile(os.path.join(store, "manifest.json")):
+        raise AssertionError(f"{phase}: --prime failed ({r.returncode}): {r.stderr[-3000:]}")
+    reqs = requests()
+    lines = "".join(json.dumps({"id": n, "image_id": i, "question": q}) + "\n"
+                    for n, (i, q) in enumerate(reqs))
+    t0 = time.perf_counter()
+    r = _serve_cli(*base, input=lines)
+    out["stdin_s"] = time.perf_counter() - t0
+    answers = [json.loads(line) for line in r.stdout.strip().splitlines()]
+    if r.returncode != 0 or sorted(a["id"] for a in answers if "answer" in a) != \
+            list(range(len(reqs))) or "AOT store loaded" not in r.stderr:
+        raise AssertionError(f"{phase}: stdin round trip failed ({r.returncode}): "
+                             f"{r.stderr[-3000:]}")
+    with socket.socket() as sock:
+        sock.bind(("", 0))
+        port = sock.getsockname()[1]
+    proc = subprocess.Popen([sys.executable, "-m", "phoneme_vqa_torch.serve", *base,
+                             "--http", str(port)], cwd=REPO, stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE, text=True)
+    url = f"http://127.0.0.1:{port}"
+    try:
+        deadline = time.time() + 300
+        while True:
+            try:
+                health = json.loads(urllib.request.urlopen(url + "/healthz", timeout=5).read())
+                break
+            except (urllib.error.URLError, ConnectionError):
+                if time.time() > deadline or proc.poll() is not None:
+                    raise AssertionError(f"{phase}: the HTTP server never became healthy")
+                time.sleep(1.0)
+        results = []
+
+        def post(i, q):
+            body = json.dumps({"image_id": i, "question": q}).encode()
+            results.append(json.loads(urllib.request.urlopen(
+                urllib.request.Request(url + "/answer", body), timeout=FUTURE_TIMEOUT).read()))
+
+        threads = [threading.Thread(target=post, args=r) for r in reqs[:16]]
+        [t.start() for t in threads]
+        [t.join(timeout=FUTURE_TIMEOUT) for t in threads]
+        stats = json.loads(urllib.request.urlopen(url + "/stats", timeout=30).read())
+        metrics = urllib.request.urlopen(url + "/metrics", timeout=30).read().decode()
+        if health != {"ok": True} or len(results) != 16 or \
+                not all("answer" in x for x in results) or stats["served"] < 16 or \
+                "phonovqa_served_total" not in metrics:
+            raise AssertionError(f"{phase}: HTTP round trip failed: {stats}")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        if rc != 0:
+            raise AssertionError(f"{phase}: SIGTERM drain exited {rc}: {proc.stderr.read()[-3000:]}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    out["http_served"] = stats["served"]
+    log(f"{phase}: serve CLI at full width (LaTr-base): --prime with a kernel store exited 0 in "
+        f"{out['prime_s']:.1f} s, a stdin round trip loaded the store and answered "
+        f"{len(reqs)} requests in {out['stdin_s']:.1f} s, HTTP /answer x16, /stats, /metrics, "
+        f"/healthz answered and SIGTERM drained with exit 0")
+    return out
+
+
 def bf16_spills(logs: dict) -> list:
     """[kernel, entry, report] for every bf16 entry (attention_tma_kernel)
     whose -Xptxas -v report shows spill stores or loads."""
@@ -2313,26 +2772,30 @@ def main() -> None:
     worst = check_kernel_grid()
     sal_worst = check_sal_kernel_grid()
     grads = check_kernel_grads()
-    tokenizer = FallbackSubwordTokenizer(T5_BASE["t5_vocab_size"])
     n_t5 = T5_BASE["num_encoder_layers"]
     n_dec = T5_BASE["num_t5_decoder_layers"]
     encode_launches = FULL["vit_num_layers"] + n_t5  # every ViT and T5 encoder layer
     with tempfile.TemporaryDirectory() as root:
+        def save(paths, name):
+            return os.path.join(paths["root"], f"{name}_ckpts")
+
         served, e2e = run_family(
             "4", "LaTr-base",
-            lambda dtype: latr_mod.build_latr(dict(FULL, DTYPE=dtype), DEVICE, SEED),
-            latr_fixture, latr_engine, tokenizer,
-            {"flash_attention": encode_launches, "sal_fused_attention": 0},
+            lambda paths, dtype: serve_executor(latr_train_config(paths, save(paths, "latr"),
+                                                                  DTYPE=dtype)),
+            latr_fixture, {"flash_attention": encode_launches, "sal_fused_attention": 0},
             # teacher forcing at T=20 >= 16: ViT + encoder + decoder self + cross
             # layers; then generate's encode: ViT + encoder again
             {"flash_attention": 2 * encode_launches + 2 * n_dec, "sal_fused_attention": 0},
             os.path.join(root, "latr"),
         )
+        sal_keys = dict(EXECUTOR="SaL_Executor", MODEL_CLASS="SaL",
+                        MODEL_MOD_CONFIG_CLASS="SaL_config")
         sal_served, sal_e2e = run_family(
             "4b", "SaL-base",
-            lambda dtype: sal_mod.build_sal(dict(SAL_FULL, DTYPE=dtype), DEVICE, SEED),
-            sal_fixture, sal_engine, tokenizer,
-            {"flash_attention": 0, "sal_fused_attention": n_t5},
+            lambda paths, dtype: serve_executor(phoneme_train_config(
+                paths, save(paths, "sal"), DTYPE=dtype, **sal_keys)),
+            sal_fixture, {"flash_attention": 0, "sal_fused_attention": n_t5},
             # teacher forcing: the encoder through the SaL kernel, decoder self
             # and cross layers through the attention kernel; then generate's
             # encode through the SaL kernel again
@@ -2341,19 +2804,23 @@ def main() -> None:
         )
         n_custom = PSAL_FULL["num_decoder_layers"]
         psal_served, psal_e2e = run_family(
-            "4c", "PhonemeSaL-base", build_phoneme_sal, sal_fixture, phoneme_engine, tokenizer,
-            {"flash_attention": 0, "sal_fused_attention": n_t5},
+            "4c", "PhonemeSaL-base",
+            lambda paths, dtype: serve_executor(phoneme_train_config(
+                paths, save(paths, "psal"), DTYPE=dtype)),
+            sal_fixture, {"flash_attention": 0, "sal_fused_attention": n_t5},
             # teacher forcing: the encoder through the SaL kernel, the custom
             # decoder's self and cross layers through the attention kernel;
             # then generate's encode through the SaL kernel again
             {"flash_attention": 2 * n_custom, "sal_fused_attention": 2 * n_t5},
-            os.path.join(root, "psal"), vocab=len(PhonemeTokenizer()), max_answer=PSAL_ANSWER,
+            os.path.join(root, "psal"), max_answer=PSAL_ANSWER, vocab=len(PhonemeTokenizer()),
         )
         structured, vocab_path, ann_path = structured_tokenizer(root)
+        structured_keys = dict(vocab_path=vocab_path, annotation_paths=[ann_path])
         platr_served, platr_e2e = run_family(
-            "4d", "PhonemeLaTr-base", lambda dtype: build_phoneme_latr(structured, dtype),
-            latr_fixture, lambda *a: latr_engine(*a, answer_tokenizer=structured), tokenizer,
-            {"flash_attention": encode_launches, "sal_fused_attention": 0},
+            "4d", "PhonemeLaTr-base",
+            lambda paths, dtype: serve_executor(family_train_config(
+                paths, save(paths, "platr"), "phoneme_latr", DTYPE=dtype, **structured_keys)),
+            latr_fixture, {"flash_attention": encode_launches, "sal_fused_attention": 0},
             # teacher forcing: ViT + encoder, the triple decoder's self and
             # cross layers (T=20 >= 16); then generate's encode again
             {"flash_attention": 2 * encode_launches + 2 * n_custom, "sal_fused_attention": 0},
@@ -2361,8 +2828,10 @@ def main() -> None:
             vocab=(structured.onset_size, structured.rhyme_size, structured.tone_size),
         )
         prestu_served, prestu_e2e = run_family(
-            "4e", "PreSTU-base", build_prestu, latr_fixture, latr_engine, tokenizer,
-            {"flash_attention": encode_launches, "sal_fused_attention": 0},
+            "4e", "PreSTU-base",
+            lambda paths, dtype: serve_executor(family_train_config(
+                paths, save(paths, "prestu"), "prestu", DTYPE=dtype)),
+            latr_fixture, {"flash_attention": encode_launches, "sal_fused_attention": 0},
             {"flash_attention": 2 * encode_launches + 2 * n_dec, "sal_fused_attention": 0},
             os.path.join(root, "prestu"),
         )
@@ -2405,7 +2874,6 @@ def main() -> None:
         custom_step = {"flash_attention": encode_launches + 2 * n_custom,
                        "sal_fused_attention": 0}  # + the decoder's self and cross layers
         prestu_step = {"flash_attention": encode_launches + 2 * n_dec, "sal_fused_attention": 0}
-        structured_keys = dict(vocab_path=vocab_path, annotation_paths=[ann_path])
         platr_trained = train_and_predict(
             "phase 9", "PhonemeLaTr-base", PhonemeLaTrExecutor, family_train_config(
                 paths, os.path.join(paths["root"], "platr_ckpts"), "phoneme_latr",
@@ -2467,6 +2935,28 @@ def main() -> None:
                                     DTYPE=dtype, SAVE=False, **structured_keys), "train",
                 device=DEVICE), encode_step)}
         variants["sampling"] = sampling_phase(paths, paths["root"])
+
+        # phases 14-17: the online serving engines, on phase 7's fixture
+        # (LaTr family) and phase 8's (PhonemeSaL)
+        def latr_ex(p, dtype):
+            return serve_executor(latr_train_config(p, save(p, "serve_latr"), DTYPE=dtype))
+
+        engines = {"gathered": {
+            "latr": gathered_phase("LaTr-base", latr_ex, paths, encode_step),
+            "phoneme_latr": gathered_phase(
+                "PhonemeLaTr-base", lambda p, dtype: serve_executor(family_train_config(
+                    p, save(p, "serve_platr"), "phoneme_latr", DTYPE=dtype, **structured_keys)),
+                paths, encode_step)}}
+        cont_latr = continuous_phase("LaTr-base", latr_ex, paths, encode_step, CONT_GRID)
+        best = tuple(int(x) for x in cont_latr["best"].split("x"))
+        engines["continuous"] = {
+            "latr": cont_latr,
+            "phoneme_sal": continuous_phase(
+                "PhonemeSaL-base", lambda p, dtype: serve_executor(phoneme_train_config(
+                    p, save(p, "serve_psal"), DTYPE=dtype)), psal_paths, sal_encode, [best],
+                max_answer=PSAL_ANSWER)}
+        engines["faults"] = fault_phase(paths, root)
+        engines["cli"] = cli_phase(paths, root)
 
     per_batch = lambda key: 12 * shapes[0][key] + 12 * shapes[1][key]
     per_step = lambda key: 12 * sum(r[key] for r in train_shapes)
@@ -2600,7 +3090,7 @@ def main() -> None:
                               "sal": sal_steps, "phoneme_latr": platr_trained,
                               "phoneme_latr_f32_step": platr_f32, "steps_9c": steps_9c,
                               "prestu_f32_step": prestu_f32},
-                    "decode_variants": variants, "card": card}))
+                    "decode_variants": variants, "serving_engines": engines, "card": card}))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card_line())

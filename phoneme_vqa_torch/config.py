@@ -2,13 +2,15 @@
 
 ``Config`` accepts a plain dict, so the serving path and ``chip_smoke.py``
 need no YAML parser; PyYAML is imported only inside :func:`get_config`,
-which the CLI (``phoneme_vqa_torch/run.py``) calls to read a preset. The
+which the CLIs (``phoneme_vqa_torch/run.py``, ``serve.py``) call to read a
+preset that is not JSON. The
 presets' ``DEVICE`` key is not read: the port takes its device from the
 caller.
 """
 
 from __future__ import annotations
 
+import json
 from typing import Any, Mapping
 
 
@@ -53,11 +55,16 @@ _DEFAULTS: dict[str, Any] = {
 
 
 def get_config(yaml_file: str) -> Config:
-    """Load a YAML preset into a Config (the same presets the JAX package reads)."""
-    import yaml
-
+    """Load a YAML preset into a Config (the same presets the JAX package
+    reads); a ``.json`` file is read with the standard library (a machine
+    without PyYAML)."""
     with open(yaml_file, "r", encoding="utf-8") as f:
-        raw = yaml.safe_load(f) or {}
+        if yaml_file.endswith(".json"):
+            raw = json.load(f)
+        else:
+            import yaml
+
+            raw = yaml.safe_load(f) or {}
     cfg = Config(_DEFAULTS)
     for k, v in Config(raw).items():
         cfg[k] = v

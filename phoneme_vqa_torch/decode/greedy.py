@@ -44,20 +44,32 @@ def greedy_decode(
     count = torch.zeros(batch_size, dtype=torch.float32, device=device)
 
     for i in range(max_length - 1):
-        logits, cache = step_fn(out[:, i], cache, i)
-        nxt = logits.argmax(dim=-1)
-        if with_scores:
-            lp = chosen_logprob(logits, nxt)
-            sum_lp += torch.where(done, 0.0, lp)
-            count += (~done).float()
-        nxt = torch.where(done, pad_id, nxt)
-        out[:, i + 1] = nxt
-        done |= nxt == eos_id
+        cache = greedy_step(step_fn, cache, i, out, done, sum_lp, count, eos_id, pad_id,
+                            with_scores)
         if bool(done.all()):
             break
     if with_scores:
         return out, sum_lp / count.clamp(min=1.0)
     return out
+
+
+def greedy_step(step_fn: StepFn, cache, i: int, out, done, sum_lp, count, eos_id: int,
+                pad_id: int, with_scores: bool):
+    """Step ``i`` of :func:`greedy_decode`: writes token i+1 into ``out``
+    and updates ``done``, ``sum_lp`` and ``count``, all in place; returns
+    the cache. Once a row is done it emits pad and its score is unchanged,
+    so steps past the all-done exit change nothing that is read
+    (``serving/graphs.py`` replays these operations in captured chunks)."""
+    logits, cache = step_fn(out[:, i], cache, i)
+    nxt = logits.argmax(dim=-1)
+    if with_scores:
+        lp = chosen_logprob(logits, nxt)
+        sum_lp += torch.where(done, 0.0, lp)
+        count += (~done).float()
+    nxt = torch.where(done, pad_id, nxt)
+    out[:, i + 1] = nxt
+    done |= nxt == eos_id
+    return cache
 
 
 def multi_head_greedy_decode(
@@ -88,17 +100,26 @@ def multi_head_greedy_decode(
     count = torch.zeros(batch_size, dtype=torch.float32, device=device)
 
     for i in range(max_length - 1):
-        logits, cache = step_fn(out[:, i], cache, i)
-        nxt = torch.stack([l.argmax(dim=-1) for l in logits], dim=-1)
-        if with_scores:
-            lp = sum(chosen_logprob(l, nxt[:, c]) for c, l in enumerate(logits))
-            sum_lp += torch.where(done, 0.0, lp)
-            count += (~done).float() * len(logits)
-        nxt = torch.where(done[:, None], pad_id, nxt)
-        out[:, i + 1] = nxt
-        done |= nxt[:, stop_component] == eos_id
+        cache = multi_head_greedy_step(step_fn, cache, i, out, done, sum_lp, count, eos_id,
+                                       pad_id, stop_component, with_scores)
         if bool(done.all()):
             break
     if with_scores:
         return out, sum_lp / count.clamp(min=1.0)
     return out
+
+
+def multi_head_greedy_step(step_fn, cache, i: int, out, done, sum_lp, count, eos_id: int,
+                           pad_id: int, stop_component: int, with_scores: bool):
+    """Step ``i`` of :func:`multi_head_greedy_decode`, in place as
+    :func:`greedy_step`."""
+    logits, cache = step_fn(out[:, i], cache, i)
+    nxt = torch.stack([l.argmax(dim=-1) for l in logits], dim=-1)
+    if with_scores:
+        lp = sum(chosen_logprob(l, nxt[:, c]) for c, l in enumerate(logits))
+        sum_lp += torch.where(done, 0.0, lp)
+        count += (~done).float() * len(logits)
+    nxt = torch.where(done[:, None], pad_id, nxt)
+    out[:, i + 1] = nxt
+    done |= nxt[:, stop_component] == eos_id
+    return cache

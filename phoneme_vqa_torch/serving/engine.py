@@ -1,76 +1,71 @@
-"""Synchronous serving engine over the greedy decode path.
+"""Dynamic-batching serving engine over an executor's decode path
+(counterpart of ``phoneme_vqa_tpu/serving/engine.py``).
 
-Counterpart of the request path of ``phoneme_vqa_tpu/serving/engine.py``:
-requests (image_id, question) are featurized against preloaded feature
-stores (:func:`featurize_requests`), decoded in fixed-size batches with the
-final batch padded (as ``BaseExecutor.infer`` pads it), and each row is cut
-at EOS and detokenized (as ``BaseExecutor._decode_rows`` does): by the
-backbone tokenizer, or by the answer tokenizer of a model with a custom or
-phoneme decoder (``answer_tokenizer``, :func:`decode_answer_rows`; the
-structured phoneme tokenizer decodes the (T, 3) rows of the triple
-decoder). The generate function follows the model's ``decode_components``
-(``models.generate.build_generate_fn``). It serves the LaTr family from an
-OCR store and page images, the PreSTU family from the same (its question
-and OCR fused into one stream), and the SaL family when it is given
-:class:`SaLInputs` (an object store and the feature files) too, moving the
-model's batch keys to the device. Threads, queues, deadlines, the watchdog,
-adapters, buckets and the encoding cache are not ported yet.
+* **One captured decode serves all traffic.** Requests are gathered into
+  fixed batch shapes (buckets; a partial batch is padded), and on the card
+  each bucket's greedy decode is a set of CUDA graphs captured at warmup
+  (``serving/graphs.py``): replays, no per-step kernel launches from
+  Python. On the CPU the same operations run eagerly.
+* **Dynamic batching.** A lone request waits at most ``max_wait_ms`` for
+  batch-mates; under load the batch fills to ``batch_size``.
+* **Featurization rides the data layer.** Each batch of requests becomes QA
+  rows featurized against the preloaded OCR (and object) stores by the
+  executor's own ``_make_dataset``: the arrays the eval path produces.
+* **Two threads.** The dispatcher gathers, featurizes, moves a batch to the
+  device and launches its encode; the resolver replays the decode, reads
+  the rows back and resolves the futures. A handoff queue of depth 2
+  between them lets featurizing batch i+1 overlap the decode of batch i.
+  On the card both threads run on the engine's own stream.
+
+Works with any executor family (LaTr / PreSTU / SaL x stock / customized /
+phoneme): the engine uses ``executor._make_dataset``, ``infer_async`` (or
+``infer``) and, for the graphs, ``executor.model``. Feature stores are the
+port's dicts keyed by image id (``data/adapters.py``), not frames.
+LoRA adapters and the ViT encoding cache are ROADMAP A12 and raise.
 """
 
 from __future__ import annotations
 
-import dataclasses
-from typing import List, Optional, Sequence, Tuple
+import contextlib
+import math
+import queue
+import threading
+import time
+from concurrent.futures import Future
+from typing import List, Optional
 
-from ..data.latr import LaTrDataset
+import torch
+
 from ..data.loader import batch_iterator
-from ..data.sal import SaLDataset
-from ..models import latr as latr_mod
-from ..models.generate import build_generate_fn
+from ..utils.logger import get_logger
+from .graphs import GraphDecoder, check_params_in_place, param_addresses
+from .watchdog import StallWatchdog, fail_future
 
-Request = Tuple[float, str]  # (image_id, question)
-
-
-@dataclasses.dataclass(frozen=True)
-class SaLInputs:
-    """What featurizing for the SaL family needs beside the OCR store (the
-    SaL executor's config keys of the same names)."""
-
-    obj_store: dict  # {image_id: (labels, boxes)}, ``textlayout_obj_adapt``
-    base_ocr_feature_path: str
-    base_obj_feature_path: str
-    ocr_hidden: int = 512
-    obj_hidden: int = 2048
-    max_obj_element: int = 25
-    max_obj_length: int = 50
+log = get_logger(__name__)
 
 
-def featurize_requests(tokenizer, ocr_store, base_img_path, reqs: Sequence[Request],
-                       max_ocr_element: int = 50, max_ocr_length: int = 100,
-                       max_q_length: int = 30, max_a_length: int = 20,
-                       sal: Optional[SaLInputs] = None, dataset=LaTrDataset):
-    """Requests -> the eval-path ArrayDataset (answers are empty: serving
-    has none): SaL's when ``sal`` is given (``base_img_path`` is then
-    unused), else ``dataset``'s (a LaTr-family model's ``DATASET``: LaTr's,
-    or PreSTU's with the question and OCR fused). Rows whose image a store
-    lacks are dropped."""
-    rows = [
-        {"image_id": float(image_id), "question": question, "answer": ""}
-        for image_id, question in reqs
-    ]
-    if sal is not None:
-        return SaLDataset(
-            rows, ocr_store, sal.obj_store, tokenizer, sal.base_ocr_feature_path,
-            sal.base_obj_feature_path, ocr_hidden=sal.ocr_hidden, obj_hidden=sal.obj_hidden,
-            max_ocr_element=max_ocr_element, max_ocr_length=max_ocr_length,
-            max_obj_element=sal.max_obj_element, max_obj_length=sal.max_obj_length,
-            max_input_length=max_q_length, max_output_length=max_a_length,
-        ).dataset
-    return dataset(
-        rows, ocr_store, tokenizer, base_img_path,
-        max_ocr_element=max_ocr_element, max_ocr_length=max_ocr_length,
-        max_input_length=max_q_length, max_output_length=max_a_length,
-    ).dataset
+class _Request:
+    __slots__ = ("image_id", "question", "future", "t_submit", "deadline", "adapter",
+                 "t_slotted")
+
+    def __init__(self, image_id, question, deadline=None, adapter=None):
+        self.image_id = image_id
+        self.question = question
+        self.future: Future = Future()
+        self.t_submit = time.monotonic()
+        self.deadline = deadline  # absolute monotonic time, or None
+        self.adapter = adapter
+        self.t_slotted = None  # when device work started (EWMA input)
+
+
+def featurize_requests(executor, ocr_store, obj_store, reqs: List[_Request]):
+    """Requests -> the executor's own eval-path dataset: QA rows (answers
+    empty: serving has none) featurized against the preloaded stores by
+    ``_make_dataset``. Rows whose image a store lacks are dropped."""
+    rows = [{"image_id": r.image_id, "question": r.question, "answer": ""} for r in reqs]
+    if obj_store is not None:
+        return executor._make_dataset(rows, ocr_store, obj_store)
+    return executor._make_dataset(rows, ocr_store)
 
 
 def decode_rows(tokenizer, rows) -> List[str]:
@@ -95,57 +90,718 @@ def decode_answer_rows(answer_tokenizer, rows) -> List[str]:
     return [d[0] if isinstance(d, list) else d for d in decoded]
 
 
+def store_key_type(store: dict):
+    """The numeric type of a store's image ids (int or float), or None."""
+    key = next(iter(store), None)
+    if isinstance(key, bool):
+        return None
+    if isinstance(key, int):
+        return int
+    if isinstance(key, float):
+        return float
+    return None
+
+
+def coerce_image_id(image_id, key_type):
+    """``image_id`` as the store's key type when the value survives the round
+    trip (JSON clients send "3" or 3 for a store keyed by 3.0; int(3.7)
+    would answer for the wrong image, so it is left as it is and rejected)."""
+    if key_type is None:
+        return image_id
+    try:
+        coerced = key_type(float(image_id)) if key_type is int else key_type(image_id)
+        if float(coerced) == float(image_id):
+            return coerced
+    except (TypeError, ValueError, OverflowError):
+        pass
+    return image_id
+
+
+def engine_device(executor):
+    """The executor's device, or None for an executor without one (stubs)."""
+    device = getattr(executor, "device", None)
+    return None if device is None else torch.device(device)
+
+
+def decodes_with_graphs(executor) -> bool:
+    """Whether the engine decodes ``executor``'s model through
+    ``serving/graphs.py``: a real executor whose configured decode is greedy
+    (``SPEC_DECODE`` and ``EVAL_CONTINUOUS`` give greedy's rows). Sampling
+    and beam search have no graphs: served on the CPU they run the
+    executor's eager generate, and on the card they raise."""
+    if not hasattr(executor, "model") or not hasattr(executor, "_decodes_greedy"):
+        return False
+    if executor._decodes_greedy():
+        return True
+    if engine_device(executor).type == "cuda":
+        raise NotImplementedError(
+            "the serving graphs capture the greedy decode; SAMPLE and beam search "
+            "(isgreedy: false) configs are served on the CPU only")
+    return False
+
+
+class DeviceStream:
+    """The engine's own CUDA stream on the executor's device (a no-op off
+    the card): ``enter()`` makes it, and the device, current in the calling
+    thread; ``scope()`` does so for a block."""
+
+    def __init__(self, device):
+        self.device = device
+        self.stream = None
+        if device is not None and device.type == "cuda":
+            if device.index is None:
+                self.device = torch.device("cuda", torch.cuda.current_device())
+            self.stream = torch.cuda.Stream(self.device)
+
+    def enter(self) -> None:
+        if self.stream is not None:
+            torch.cuda.set_device(self.device)
+            torch.cuda.set_stream(self.stream)
+
+    def scope(self):
+        if self.stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self.stream)
+
+    def synchronize(self) -> None:
+        if self.stream is not None:
+            torch.cuda.synchronize(self.device)
+
+
 class ServingEngine:
-    """Answers batches of requests with a LaTr, PreSTU or SaL model on its
-    device.
+    """Batches concurrent answer requests through ``executor.infer_async``.
 
-    ``answer(requests)`` featurizes, decodes in batches of ``batch_size``
-    (the last one padded) and returns one answer string per request. A
-    request whose image is missing from a store raises ``KeyError``.
-    ``answer_tokenizer`` decodes the answers of a model whose decoder has
-    its own vocabulary (the customized and phoneme models); ``tokenizer``
-    (the backbone's) featurizes the requests."""
+    Parameters
+    ----------
+    executor: a constructed executor (any mode) with weights in place:
+        e.g. built by ``serve.py`` in serve mode with the best checkpoint
+        loaded, or a train-mode executor in tests.
+    ocr_store: the OCR feature store (``textlayout_ocr_adapt``).
+    obj_store: the object feature store (SaL family only).
+    batch_size: the largest decode batch shape.
+    max_wait_ms: max time a lone request waits for batch-mates.
+    max_answer_length: decode length cap.
+    warmup: decode every bucket once at construction, not on the first
+        request. On the card each bucket's graphs are captured at
+        construction whatever ``warmup`` says: capturing on the engine's
+        stream while the resolver replays there would record the replay.
+    max_queue: >0 bounds pending requests; submit raises when full.
+        **-1 derives a bound (4 x batch_size).** A bound below 2 x
+        batch_size STARVES the batcher: the queue can never hold a full
+        batch plus arrivals, so batches run partial and goodput collapses
+        below capacity; a loud warning is logged. 0 = unbounded.
+    cache_size: >0 memoizes up to that many (image_id, question) -> answer
+        pairs (LRU). Decode is deterministic and weights only change through
+        :meth:`reload` (which clears the cache).
+    confidence: resolve requests to ``{"answer", "confidence"}`` dicts:
+        exp of the answer's mean emitted-token log-probability, computed in
+        the same decode (``executor.infer(return_scores=True)``).
+    default_deadline_s: >0 gives every request a deadline that many seconds
+        after submission. A request whose deadline passes while it waits is
+        EXPIRED before featurization (TimeoutError); so is one whose
+        remaining time is under the measured service time (an EWMA of
+        claim -> resolve). ``deadline_s`` on :meth:`submit` overrides.
+    adapters: LoRA adapters (JAX multi-adapter serving): ROADMAP A12, raises.
+    buckets: ascending decode batch shapes (e.g. ``[1, 4]``) warmed up
+        beside ``batch_size``; each gathered batch decodes at the smallest
+        bucket that fits. Default: ``[batch_size]``.
+    access_log: callable receiving one dict per resolved request (``ok``
+        with the bucket and answer length, ``cached``, ``expired``,
+        ``error``; each with its submit -> resolution latency). The question
+        text is never logged, only its length. A sink that raises is
+        disabled after one warning.
+    stall_timeout_s: a device call blocking longer than this fails every
+        in-flight future, marks the engine unhealthy and keeps ``stop()``
+        returning (``serving/watchdog.py``). 0 disables.
+    """
 
-    def __init__(self, model, tokenizer, ocr_store, base_img_path: Optional[str],
-                 batch_size: int = 32, max_answer_length: int = 20,
-                 max_ocr_element: int = 50, max_ocr_length: int = 100,
-                 max_q_length: int = 30, sal: Optional[SaLInputs] = None,
-                 answer_tokenizer=None):
-        self.model = model
-        self.tokenizer = tokenizer
-        self.answer_tokenizer = answer_tokenizer
+    def __init__(
+        self,
+        executor,
+        ocr_store: dict,
+        obj_store: Optional[dict] = None,
+        batch_size: int = 8,
+        max_wait_ms: float = 5.0,
+        max_answer_length: int = 20,
+        warmup: bool = True,
+        max_queue: int = 0,
+        cache_size: int = 0,
+        confidence: bool = False,
+        default_deadline_s: float = 0.0,
+        adapters: Optional[dict] = None,
+        buckets: Optional[list] = None,
+        access_log=None,
+        stall_timeout_s: float = 300.0,
+    ):
+        if adapters:
+            raise NotImplementedError("LoRA adapters in serving are not ported yet (ROADMAP A12)")
+        self.executor = executor
         self.ocr_store = ocr_store
-        self.base_img_path = base_img_path
-        self.sal = sal
-        self.batch_size = batch_size
-        self.max_answer_length = max_answer_length
-        self.featurize_args = dict(
-            max_ocr_element=max_ocr_element, max_ocr_length=max_ocr_length,
-            max_q_length=max_q_length, sal=sal,
-        )
-        if sal is None:
-            self.featurize_args["dataset"] = model.DATASET
-        self.batch_keys = model.BATCH_KEYS
-        # SaL featurization inner-joins both stores: admit only images in each
-        self.known_ids = set(ocr_store) if sal is None else set(ocr_store) & set(sal.obj_store)
-        if not self.known_ids:
-            raise ValueError("no image id is in every feature store")
-        self.generate = build_generate_fn(model, max_answer_length)
+        self.obj_store = obj_store
+        self.batch_size = int(batch_size)
+        self.buckets = self._resolve_buckets(buckets)
+        self.max_wait_s = float(max_wait_ms) / 1e3
+        self.max_answer_length = int(max_answer_length)
+        self.confidence = bool(confidence)
+        self.default_deadline_s = float(default_deadline_s)
+        self._key_type = store_key_type(ocr_store)
+        self._known_ids = set(ocr_store)
+        if obj_store is not None:
+            # SaL family: featurization inner-joins BOTH stores; admit only
+            # images present in each, or one bad request would fail its
+            # whole batch at the dropped-rows check
+            self._known_ids &= set(obj_store)
+        if not self._known_ids:
+            raise ValueError(
+                "feature store is empty (no image ids"
+                + (" present in both OCR and object stores)" if obj_store is not None
+                   else " in the OCR store)"))
+        if max_queue < 0:
+            max_queue = 4 * self.batch_size
+        elif 0 < max_queue < 2 * self.batch_size:
+            log.warning(
+                f"(!) max_queue={max_queue} < 2*batch_size={2 * self.batch_size} STARVES the "
+                "batcher: the queue can never hold a full batch plus arrivals, so decodes run "
+                f"partial and goodput collapses below capacity. Use >= {2 * self.batch_size} "
+                f"(or -1 to auto-derive {4 * self.batch_size}).")
+        self.max_queue = max_queue
+        self._queue: "queue.Queue[Optional[_Request]]" = queue.Queue(maxsize=max_queue)
+        self._stopped = False
+        self._unhealthy: Optional[str] = None
+        self._watchdog = StallWatchdog(stall_timeout_s, self._on_stall)
+        self._inflight_reqs: set = set()  # claimed by the dispatcher,
+        self._inflight_lock = threading.Lock()  # unresolved by the resolver
+        self._lock = threading.Lock()
+        self._stats_lock = threading.Lock()
+        self._swap_lock = threading.Lock()  # one reload at a time
+        # reload barrier: batches between dispatch and resolution, and
+        # whether a reload waits for them to drain (the dispatcher holds new
+        # batches meanwhile: no batch decodes under a mix of weights)
+        self._weights_cv = threading.Condition()
+        self._batches_in_flight = 0
+        self._reload_waiting = False
+        self._served = 0
+        self._failed = 0
+        self._service_ewma = 0.0  # claim->resolve seconds, viability gate
+        self._batches = 0
+        self._cache_hits = 0
+        self._reloads = 0
+        self._expired = 0
+        self._latencies_ms: list = []
+        self._cache_size = int(cache_size)
+        self._cache: dict = {}  # (image_id, question, adapter) -> answer
+        self._bucket_batches: dict = {}  # decode batch shape -> count
+        self._access_log = access_log
+        self._stream = DeviceStream(engine_device(executor))
+        self._graphs = decodes_with_graphs(executor)
+        self._decoders: dict = {}  # bucket -> GraphDecoder
+        self._graph_pool = None
+        self._param_addresses = None
+        self.capture_s: dict = {}  # bucket -> seconds to capture its graphs
+        if self._graphs:
+            executor._ensure_params()
+            self._param_addresses = param_addresses(executor.model)
+        if self._graphs and self._stream.stream is not None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+            warmup = True
+        if warmup:
+            ds = self._featurize([self._dummy_request()])
+            with self._stream.scope():
+                for bucket in self.buckets:
+                    self._infer_async(ds, bucket)()
+            self._stream.synchronize()
+        self._inflight: "queue.Queue" = queue.Queue(maxsize=2)
+        self._worker = threading.Thread(target=self._run, daemon=True,
+                                        name="serving-dispatcher")
+        self._worker.start()
+        self._resolver = threading.Thread(target=self._resolve_loop, daemon=True,
+                                          name="serving-resolver")
+        self._resolver.start()
 
-    def answer(self, requests: Sequence[Request]) -> List[str]:
-        unknown = sorted({float(i) for i, _ in requests} - self.known_ids)
-        if unknown:
-            stores = "OCR store" if self.sal is None else "OCR and object stores"
-            raise KeyError(f"image ids {unknown} are not in the {stores}")
-        dataset = featurize_requests(
-            self.tokenizer, self.ocr_store, self.base_img_path, requests,
-            **self.featurize_args,
-        )
-        rows: List = []
-        for batch, n_valid in batch_iterator(dataset, self.batch_size, pad_final=True):
-            tb = latr_mod.to_device_batch(batch, self.model.device, self.batch_keys)
-            out = self.generate(tb)
-            rows.extend(out[:n_valid].tolist())
-        if self.answer_tokenizer is not None:
-            return decode_answer_rows(self.answer_tokenizer, rows)
-        return decode_rows(self.tokenizer, rows)
+    def _dummy_request(self) -> _Request:
+        """A featurizable placeholder request (warmup)."""
+        return _Request(next(iter(self._known_ids)), "")
+
+    def _record(self, req: _Request, status: str, **extra) -> None:
+        """One access-log record (no-op without a sink). A sink that raises
+        is disabled after one warning, never crashes serving."""
+        if self._access_log is None:
+            return
+        image_id = req.image_id
+        rec = {
+            "ts": round(time.time(), 3),
+            "image_id": image_id.item() if hasattr(image_id, "item") else image_id,
+            "question_chars": len(req.question),  # length only, never the text
+            "adapter": req.adapter,
+            "status": status,
+            "latency_ms": round((time.monotonic() - req.t_submit) * 1e3, 3),
+            **extra,
+        }
+        try:
+            self._access_log(rec)
+        except Exception as e:
+            log.warning(f"(!) access-log sink raised {e!r}: access logging disabled")
+            self._access_log = None
+
+    def _resolve_buckets(self, buckets) -> list:
+        """Ascending decode batch shapes ending at ``batch_size``, clipped to
+        it and deduped. None keeps the single-shape engine. (The port serves
+        on one device: a mesh is ROADMAP A15.)"""
+        if not buckets:
+            return [self.batch_size]
+        out = set()
+        for b in buckets:
+            b = int(b)
+            if b <= 0:
+                raise ValueError(f"bucket sizes must be positive, got {b}")
+            out.add(min(self.batch_size, b))
+        out.add(self.batch_size)
+        return sorted(out)
+
+    # -- client surface -------------------------------------------------------
+
+    def submit(self, image_id, question: str, deadline_s: float = None,
+               adapter: str = None) -> Future:
+        """Enqueue a request; resolves to the answer string (or the
+        ``{"answer", "confidence"}`` dict in confidence mode). ``deadline_s``
+        (or the engine's ``default_deadline_s``) expires the request with
+        TimeoutError if it is still queued that many seconds from now."""
+        if adapter is not None:
+            raise KeyError(f"unknown adapter {adapter!r} (serving base only: adapters are "
+                           "ROADMAP A12)")
+        with self._lock:  # uniform admission: a stopped engine rejects
+            if self._unhealthy is not None:  # everything, cache included
+                raise RuntimeError(f"engine unhealthy: {self._unhealthy}")
+            if self._stopped:
+                raise RuntimeError("engine stopped")
+        image_id = coerce_image_id(image_id, self._key_type)
+        if image_id not in self._known_ids:
+            stores = "OCR store" if self.obj_store is None else "OCR+object stores"
+            raise KeyError(f"unknown image_id {image_id!r} (not in {stores})")
+        if self._cache_size:
+            key = (image_id, question, adapter)
+            hit = object()  # sentinel: None is not a valid cached answer
+            answer = hit
+            with self._stats_lock:
+                if key in self._cache:
+                    answer = self._cache.pop(key)
+                    self._cache[key] = answer  # move-to-end: LRU
+                    self._cache_hits += 1
+            if answer is not hit:
+                self._record(_Request(image_id, question, adapter=adapter), "cached")
+                fut: Future = Future()
+                fut.set_result(answer)
+                return fut
+        if deadline_s is None and self.default_deadline_s > 0:
+            deadline_s = self.default_deadline_s
+        deadline = time.monotonic() + deadline_s if deadline_s else None
+        req = _Request(image_id, question, deadline, adapter)
+        with self._lock:  # pairs with stop(): no enqueue after the sentinel
+            if self._unhealthy is not None:
+                raise RuntimeError(f"engine unhealthy: {self._unhealthy}")
+            if self._stopped:
+                raise RuntimeError("engine stopped")
+            try:
+                self._queue.put_nowait(req)
+            except queue.Full:
+                raise RuntimeError(f"serving queue full ({self._queue.maxsize} pending)") from None
+        return req.future
+
+    def answer(self, image_id, question: str, timeout: Optional[float] = None,
+               deadline_s: float = None, adapter: str = None) -> str:
+        """Synchronous convenience wrapper around :meth:`submit`."""
+        return self.submit(image_id, question, deadline_s=deadline_s,
+                           adapter=adapter).result(timeout=timeout)
+
+    def stats(self) -> dict:
+        """Served/failed counts, batch count, queue depth, and request-latency
+        percentiles (submit -> resolution, ms) over the last 10k requests."""
+        with self._stats_lock:
+            lats = sorted(self._latencies_ms)
+            pct = lambda p: lats[min(len(lats) - 1, int(p * len(lats)))] if lats else None  # noqa: E731
+            return {
+                "served": self._served,
+                "failed": self._failed,
+                "unhealthy": self._unhealthy,
+                "batches": self._batches,
+                "cache_hits": self._cache_hits,
+                "reloads": self._reloads,
+                "expired": self._expired,
+                "service_ewma_s": round(self._service_ewma, 3),
+                "adapter_switches": 0,
+                "bucket_batches": {str(k): v for k, v in sorted(self._bucket_batches.items())},
+                "queue_depth": self._queue.qsize(),
+                "p50_ms": pct(0.50),
+                "p95_ms": pct(0.95),
+            }
+
+    def prometheus_metrics(self) -> str:
+        """:meth:`stats` in the Prometheus text exposition format (served at
+        ``GET /metrics`` by ``serve.py --http``)."""
+        return prometheus_text(self.stats(), GATHERED_COUNTERS)
+
+    def reload(self, loadtype: str = "best") -> dict:
+        """Swap the serving weights for the ``loadtype`` checkpoint's. The
+        dispatcher holds new batches while the ones in flight finish on the
+        old weights; the checkpoint is then copied into the parameters' own
+        storage (the captured graphs read it there) and serving resumes.
+        The answer cache is cleared (its entries are stale under new
+        weights)."""
+        with self._lock:
+            if self._stopped:
+                raise RuntimeError("engine stopped")
+        t0 = time.monotonic()
+        with self._swap_lock:
+            with self._weights_cv:
+                self._reload_waiting = True
+                try:
+                    while self._batches_in_flight:
+                        if self._unhealthy is not None:
+                            raise RuntimeError(f"engine unhealthy: {self._unhealthy}")
+                        self._weights_cv.wait(timeout=0.5)
+                    self.executor._load_trained_checkpoint(loadtype)
+                    self._stream.synchronize()
+                    if self._param_addresses is not None:
+                        check_params_in_place(self.executor.model, self._param_addresses)
+                finally:
+                    self._reload_waiting = False
+                    self._weights_cv.notify_all()
+        with self._stats_lock:
+            self._cache.clear()
+            self._reloads += 1
+        ms = (time.monotonic() - t0) * 1e3
+        log.info(f"## hot-reloaded {loadtype}_ckp in {ms:.0f} ms")
+        return {"reloaded": loadtype, "ms": round(ms, 1)}
+
+    @property
+    def unhealthy_reason(self) -> Optional[str]:
+        """Non-None once the stall watchdog (or a fatal device error)
+        declared the engine dead: ``/healthz`` turns 503."""
+        return self._unhealthy
+
+    def stop(self):
+        """Drain outstanding requests, then stop both pipeline threads.
+        ALWAYS returns: threads stuck on a dead device cannot be joined; once
+        the watchdog declares the stall they are abandoned (daemons)."""
+        with self._lock:
+            already = self._stopped
+            self._stopped = True
+        if already and not (self._worker.is_alive() or self._resolver.is_alive()):
+            return
+        while self._worker.is_alive() or self._resolver.is_alive():
+            try:
+                self._queue.put_nowait(None)
+            except queue.Full:
+                pass  # the worker drains it (or is stuck: the watchdog decides)
+            self._worker.join(timeout=0.5)
+            if not self._worker.is_alive():
+                self._resolver.join(timeout=0.5)
+            if self._unhealthy:
+                self._worker.join(timeout=1.0)
+                self._resolver.join(timeout=1.0)
+                if self._worker.is_alive() or self._resolver.is_alive():
+                    log.warning("(!) stop(): abandoning pipeline thread(s) stuck on a dead "
+                                "device (daemon threads)")
+                break
+        self._watchdog.close()
+
+    def _on_stall(self, label: str, waited: float) -> None:
+        self._fail_inflight(RuntimeError(
+            f"device stall: {label} blocked {waited:.0f}s (lost or hung card?)"))
+
+    def _fail_inflight(self, exc: Exception) -> None:
+        """Mark unhealthy and fail every claimed-but-unresolved and queued
+        future with ``exc``. Idempotent; runs on the watchdog's monitor
+        thread (pipeline threads stuck) or a pipeline thread (fatal error)."""
+        with self._lock:
+            if self._unhealthy is not None:
+                return
+            self._unhealthy = str(exc)
+            self._stopped = True
+        n = 0
+        with self._inflight_lock:
+            inflight = list(self._inflight_reqs)
+            self._inflight_reqs.clear()
+        for r in inflight:
+            n += fail_future(r.future, exc)
+        while True:  # queued but never claimed by the dispatcher
+            try:
+                item = self._queue.get_nowait()
+            except queue.Empty:
+                break
+            if item is not None:
+                n += fail_future(item.future, exc)
+        with self._stats_lock:
+            self._failed += n
+        with self._weights_cv:  # a reload waiting on the barrier gives up
+            self._weights_cv.notify_all()
+        log.error(f"(!!) engine unhealthy ({exc}): failed {n} in-flight request(s); "
+                  "submits now reject")
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.stop()
+
+    # -- worker ---------------------------------------------------------------
+
+    def _collect(self) -> List[_Request]:
+        item = self._queue.get()
+        if item is None:
+            return []
+        batch = [item]
+        deadline = time.monotonic() + self.max_wait_s
+        while len(batch) < self.batch_size:
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                break
+            try:
+                nxt = self._queue.get(timeout=remaining)
+            except queue.Empty:
+                break
+            if nxt is None:
+                self._queue.put(None)  # re-signal shutdown after this batch
+                break
+            batch.append(nxt)
+        return batch
+
+    def _featurize(self, reqs: List[_Request]):
+        return featurize_requests(self.executor, self.ocr_store, self.obj_store, reqs)
+
+    def _decoder(self, dataset, bucket: int) -> GraphDecoder:
+        """The bucket's graph decoder, built at its first batch (on the card:
+        at construction, on the engine's stream)."""
+        if bucket not in self._decoders:
+            batch, _ = next(batch_iterator(dataset, bucket, pad_final=True))
+            t0 = time.perf_counter()
+            self._decoders[bucket] = GraphDecoder(
+                self.executor.model, self.executor._device_batch(batch), self.max_answer_length,
+                self.confidence, self._graph_pool)
+            self._stream.synchronize()
+            self.capture_s[bucket] = time.perf_counter() - t0
+        return self._decoders[bucket]
+
+    def _infer_async(self, dataset, bucket: int):
+        """``executor.infer_async`` at ``bucket`` (through the bucket's graph
+        decoder where the engine has graphs); a stub executor that has only
+        ``infer`` answers at dispatch."""
+        infer_async = getattr(self.executor, "infer_async", None)
+        if infer_async is None:
+            answers = self.executor.infer(dataset, bucket, self.max_answer_length,
+                                          return_scores=self.confidence)
+            return lambda: answers
+        kw = {"decoder": self._decoder(dataset, bucket)} if self._graphs else {}
+        return infer_async(dataset, bucket, self.max_answer_length,
+                           return_scores=self.confidence, **kw)
+
+    def _run(self):
+        self._stream.enter()
+        try:
+            self._run_inner()
+        except Exception as e:  # fatal dispatcher error (lost device, ...)
+            self._fail_inflight(e)
+            self._inflight.put(None)  # release the resolver
+
+    def _run_inner(self):
+        """Dispatcher: gather -> featurize -> dispatch -> hand off. The
+        resolver replays the decode and reads the rows, so this loop is back
+        to assembling the next batch while the device decodes this one."""
+        while True:
+            reqs = self._collect()
+            if not reqs or self._unhealthy is not None:
+                self._inflight.put(None)  # drain signal for the resolver
+                return
+            # claim the futures: a future cancelled while queued is dropped
+            # here, and a RUNNING future can no longer be cancelled
+            reqs = [r for r in reqs if r.future.set_running_or_notify_cancel()]
+            with self._inflight_lock:  # visible to the stall handler
+                self._inflight_reqs.update(reqs)
+            # shed requests that cannot be served in time BEFORE featurizing:
+            # one whose remaining deadline is under the measured service time
+            # (EWMA of claim -> resolve) would only expire mid-decode after
+            # taking a batch seat. (The gate copies the JAX engine's,
+            # lock-out included: ROADMAP C.)
+            now = time.monotonic()
+            min_left = self._service_ewma
+            viable = lambda r: not r.deadline or r.deadline - now >= min_left  # noqa: E731
+            expired = [r for r in reqs if not viable(r)]
+            reqs = [r for r in reqs if viable(r)]
+            for r in expired:  # record BEFORE resolving: a client observing
+                self._record(r, "expired")  # the resolution sees a complete log
+                fail_future(r.future, TimeoutError(
+                    "deadline exceeded while queued" if r.deadline < now
+                    else f"deadline cannot be met: {r.deadline - now:.2f}s left < "
+                         f"{min_left:.2f}s estimated service time"))
+            for r in reqs:
+                r.t_slotted = now
+            if expired:
+                with self._inflight_lock:
+                    self._inflight_reqs.difference_update(expired)
+                with self._stats_lock:
+                    self._expired += len(expired)
+            if not reqs:
+                continue
+            with self._weights_cv:  # hold new batches while a reload waits
+                while self._reload_waiting:
+                    self._weights_cv.wait()
+                self._batches_in_flight += 1
+            work = []
+            try:
+                ds = self._featurize(reqs)
+                if len(ds) != len(reqs):
+                    raise RuntimeError(f"featurization dropped rows: {len(ds)} != {len(reqs)}")
+                # the smallest bucket that fits: a lone request rides the
+                # small decode instead of padding to the full shape
+                bucket = next(b for b in self.buckets if b >= len(reqs))
+                with self._watchdog.guard("decode dispatch"):
+                    resolve = self._infer_async(ds, bucket)
+                work.append((reqs, bucket, resolve, None))
+            except Exception as e:  # the resolver reports it per request
+                work.append((reqs, None, None, e))
+            # bounded handoff (depth 2): blocks when the resolver is behind
+            self._inflight.put((reqs, work))
+
+    def _resolve_loop(self):
+        self._stream.enter()
+        try:
+            self._resolve_loop_inner()
+        except Exception as e:  # fatal resolver error
+            self._fail_inflight(e)
+
+    def _resolve_loop_inner(self):
+        """Resolver: decode and read back the dispatched batches, then
+        complete their futures."""
+        while True:
+            item = self._inflight.get()
+            if item is None:
+                return
+            try:
+                if not self._resolve_item(*item):
+                    return
+            finally:
+                with self._weights_cv:
+                    self._batches_in_flight -= 1
+                    self._weights_cv.notify_all()
+
+    def _resolve_item(self, reqs, work) -> bool:
+        """Resolve one handed-off batch; False when the engine turned
+        unhealthy meanwhile (its futures are already failed)."""
+        answers_by_req: dict = {}
+        bucket_by_req: dict = {}
+        n_ok_groups = 0
+        buckets_used: list = []
+        for group, bucket, resolve, exc in work:
+            answers = None
+            if exc is None:
+                try:
+                    with self._watchdog.guard("decode materialize"):
+                        answers = resolve()
+                    if self.confidence:
+                        answers = [{"answer": a, "confidence": round(math.exp(s), 4)}
+                                   for a, s in zip(*answers)]
+                except Exception as e:
+                    exc = e
+            if self._unhealthy is not None:
+                return False  # the stall fired mid-wait; futures already failed
+            if exc is not None:  # resolve this group with the error
+                log.warning(f"serving batch of {len(group)} failed: {exc!r}")
+                for r in group:
+                    self._record(r, "error", error=repr(exc))
+                    fail_future(r.future, exc)
+                with self._inflight_lock:
+                    self._inflight_reqs.difference_update(group)
+                with self._stats_lock:
+                    self._failed += len(group)
+                    self._batches += 1
+                continue
+            n_ok_groups += 1
+            buckets_used.append(bucket)
+            for r, a in zip(group, answers):
+                answers_by_req[r] = a
+                bucket_by_req[r] = bucket
+        reqs = [r for r in reqs if r in answers_by_req]
+        if not reqs:
+            return True
+        now = time.monotonic()
+        # a deadline that passed while the batch decoded resolves
+        # TimeoutError: the client stopped waiting
+        late = [r for r in reqs if r.deadline and r.deadline < now]
+        for r in late:
+            self._record(r, "expired", in_flight=True)
+            fail_future(r.future, TimeoutError("deadline exceeded mid-decode"))
+        reqs = [r for r in reqs if not (r.deadline and r.deadline < now)]
+        for r in reqs:
+            a = answers_by_req[r]
+            text = a["answer"] if isinstance(a, dict) else a
+            self._record(r, "ok", bucket=bucket_by_req[r], answer_chars=len(text))
+            try:
+                r.future.set_result(a)
+            except Exception:  # lost a race with the stall handler
+                pass
+        with self._inflight_lock:
+            self._inflight_reqs.difference_update(reqs)
+            self._inflight_reqs.difference_update(late)
+        for r in reqs:
+            if r.t_slotted is not None:
+                dt = now - r.t_slotted
+                self._service_ewma = (dt if not self._service_ewma
+                                      else 0.25 * dt + 0.75 * self._service_ewma)
+        with self._stats_lock:
+            self._served += len(reqs)
+            self._expired += len(late)
+            self._batches += n_ok_groups
+            for b in buckets_used:
+                self._bucket_batches[b] = self._bucket_batches.get(b, 0) + 1
+            self._latencies_ms.extend((now - r.t_submit) * 1e3 for r in reqs)
+            del self._latencies_ms[:-10000]
+            if self._cache_size:
+                # late answers are still valid model outputs: cache them
+                for r in reqs + late:
+                    self._cache[(r.image_id, r.question, r.adapter)] = answers_by_req[r]
+                while len(self._cache) > self._cache_size:
+                    self._cache.pop(next(iter(self._cache)))
+        return True
+
+
+#: name -> help of the counters ``/metrics`` exports for the gathered engine
+GATHERED_COUNTERS = {
+    "served": "requests answered",
+    "failed": "requests resolved with an error",
+    "batches": "decode batches dispatched",
+    "cache_hits": "requests answered from the LRU cache",
+    "reloads": "hot weight reloads",
+    "expired": "requests shed after their deadline passed in queue",
+    "adapter_switches": "LoRA adapter merges onto the base weights",
+}
+
+
+def prometheus_text(s: dict, counters: dict) -> str:
+    """A stats dict in the Prometheus text exposition format: ``counters``
+    (name -> help), the bucket counts, the queue depth and the latency
+    summary."""
+    lines = []
+    for name, help_text in counters.items():
+        lines += [
+            f"# HELP phonovqa_{name}_total {help_text}",
+            f"# TYPE phonovqa_{name}_total counter",
+            f"phonovqa_{name}_total {s[name]}",
+        ]
+    if s.get("bucket_batches"):
+        lines += [
+            "# HELP phonovqa_bucket_batches_total decoded batches per compiled batch shape",
+            "# TYPE phonovqa_bucket_batches_total counter",
+        ]
+        lines += [f'phonovqa_bucket_batches_total{{size="{k}"}} {v}'
+                  for k, v in s["bucket_batches"].items()]
+    lines += [
+        "# HELP phonovqa_queue_depth requests waiting for a batch slot",
+        "# TYPE phonovqa_queue_depth gauge",
+        f"phonovqa_queue_depth {s['queue_depth']}",
+        "# HELP phonovqa_request_latency_ms submit-to-resolution latency",
+        "# TYPE phonovqa_request_latency_ms summary",
+    ]
+    for q, key in (("0.5", "p50_ms"), ("0.95", "p95_ms")):
+        if s[key] is not None:
+            lines.append(f'phonovqa_request_latency_ms{{quantile="{q}"}} {s[key]:.3f}')
+    return "\n".join(lines) + "\n"

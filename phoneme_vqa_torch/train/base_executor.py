@@ -7,6 +7,10 @@
   checkpoints on Accuracy (``best_ckp`` seeded on the first epoch),
   ``EARLY_STOP_PATIENCE``, auto-resume from ``last_ckp`` then ``best_ckp``;
 * evaluate: load the ``evaltype`` checkpoint, compute the metric dict;
+* serve: the tokenizers, the feature stores (``serve_frames``) and the
+  model; no QA CSV is read. The model stays on the meta device until a
+  checkpoint is restored into it or, failing that, :meth:`_ensure_params`
+  draws its random init at first use (``serve --ckpt none``);
 * predict: load the ``predicttype`` checkpoint, write ``results.json``
   (``[{"gens", "gts"}]`` with ``get_predict_score``, else ``[{"gens"}]``;
   ``PREDICT_SCORES`` adds ``"confidence"``, exp of the answer's mean
@@ -30,6 +34,7 @@ the port does not have yet raises when it is set (:func:`check_unported`).
 
 from __future__ import annotations
 
+import functools
 import itertools
 import json
 import math
@@ -135,6 +140,9 @@ class BaseExecutor:
             self.config.require("qa_predict_path" if mode == "predict" else "qa_val_path")
             self._init_eval_predict_mode()
             self._build_model()
+        elif mode == "serve":
+            self._init_serve_mode()
+            self._build_model()
         else:
             raise ValueError(f"unknown mode {mode!r}")
 
@@ -151,6 +159,9 @@ class BaseExecutor:
         raise NotImplementedError
 
     def _init_eval_predict_mode(self):
+        raise NotImplementedError
+
+    def _init_serve_mode(self):
         raise NotImplementedError
 
     def _build_model(self):
@@ -367,11 +378,37 @@ class BaseExecutor:
         self.load_params(restored["params"])
         self.best_score = float(restored["best_score"])
 
+    # -- serve mode's deferred init ----------------------------------------------
+
+    _abstract_params = False  # serve mode: the model is on the meta device
+
+    def _materialize(self) -> None:
+        """The meta-device model on ``self.device``, its values unset."""
+        self.model = self.model.to_empty(device=self.device)
+        self._abstract_params = False
+
+    def _ensure_params(self) -> Dict[str, torch.Tensor]:
+        """The masters, after drawing the random init of a serve-mode model
+        that no checkpoint restore reached first: the values the eager init
+        of the other modes gives (``SEED``), drawn at first use."""
+        if self._abstract_params:
+            log.info("# no checkpoint restored: materializing random-init params")
+            self._materialize()
+            self.state.params = bind_params(self.model, self._random_params())
+        return self.state.params
+
+    def _random_params(self) -> Dict[str, torch.Tensor]:
+        raise NotImplementedError
+
     def load_params(self, params: Dict[str, torch.Tensor]) -> None:
         """Every parameter by name, in f32 (a checkpoint's masters, or a
         flax tree through ``models.bridge.flax_to_state_dict``), into the
         model and the train state; in train mode the optimizer state starts
-        afresh."""
+        afresh. The values are copied into the parameters' own storage, so
+        whatever holds their addresses (the serving engines' captured CUDA
+        graphs) reads the new ones."""
+        if self._abstract_params:
+            self._materialize()
         self.state.params = bind_params(self.model, params)
         if self.mode == "train":
             self.state.opt_state = self.tx.init(self.state.params)
@@ -472,18 +509,44 @@ class BaseExecutor:
         scores)``: each answer's mean emitted-token log-probability. The
         module's weights are the compute-dtype copies of the masters, the JAX
         executor's ``_inference_params``."""
+        return self.infer_async(dataset, batch_size, max_length, return_scores)()
+
+    def infer_async(self, dataset, batch_size: int, max_length: int,
+                    return_scores: bool = False, decoder=None):
+        """Start :meth:`infer` and return a zero-argument ``resolve()`` that
+        gives its result. With ``decoder`` (a ``serving.graphs.GraphDecoder``
+        for this batch size) every batch moves to the device and its encode
+        is launched here, and ``resolve`` replays the decoder's captured
+        decode and reads the rows back; the serving engine calls this from
+        its dispatcher thread and resolves on its resolver thread. Without
+        one, ``resolve`` runs the eager generate, a batch at a time."""
+        self._ensure_params()
         self.model.eval()
-        if self._use_pool_decode():
-            rows, scores = self._infer_pool(dataset, batch_size, max_length, return_scores)
+        batches = batch_iterator(dataset, batch_size, pad_final=True)
+        if decoder is not None:
+            pending = [(decoder.start(self._device_batch(b)), n_valid) for b, n_valid in batches]
+        elif self._use_pool_decode():
+            return lambda: self._answers(
+                *self._infer_pool(dataset, batch_size, max_length, return_scores), return_scores)
         else:
             generate = self._get_generate_fn(max_length, return_scores)
+            # a generator: each batch moves to the device when resolve reaches it
+            pending = ((functools.partial(generate, self._device_batch(b)), n_valid)
+                       for b, n_valid in batches)
+
+        def resolve():
             rows, scores = [], []
-            for batch, n_valid in batch_iterator(dataset, batch_size, pad_final=True):
-                out = generate(self._device_batch(batch))
+            for finish, n_valid in pending:
+                out = finish()
                 ids = out[0] if return_scores else out
                 rows.extend(ids[:n_valid].tolist())
                 if return_scores:
                     scores.extend(out[1][:n_valid].double().tolist())
+            return self._answers(rows, scores, return_scores)
+
+        return resolve
+
+    def _answers(self, rows, scores, return_scores: bool):
         answers = self._decode_rows(rows)
         return (answers, scores) if return_scores else answers
 
@@ -495,6 +558,12 @@ class BaseExecutor:
         if key not in self._generate_fns:
             self._generate_fns[key] = self._build_generate_fn(max_length, with_scores)
         return self._generate_fns[key]
+
+    def _decodes_greedy(self) -> bool:
+        """Whether ``infer``'s batch decode gives greedy's rows (what the
+        serving graphs capture): not under ``SAMPLE``; ``SPEC_DECODE``
+        verifies greedy's tokens."""
+        return not self.config.get("SAMPLE")
 
     def _build_generate_fn(self, max_length: int, with_scores: bool = False):
         """The generate ``infer`` decodes with: sampled (``SAMPLE``), verified

@@ -44,6 +44,12 @@ class CheckpointManager:
     def exists(self, name: str) -> bool:
         return os.path.exists(self._path(name))
 
+    def mtime(self, name: str) -> Optional[float]:
+        """The modification time of ``name``'s checkpoint in ``SAVE_PATH``,
+        or None (``serve.py --reload-every`` polls it)."""
+        path = self._path(name)
+        return os.path.getmtime(path) if os.path.exists(path) else None
+
     def restore(self, name: str, device=None) -> dict:
         """The saved dict, tensors on ``device``; from ``SAVE_PATH`` or else
         ``./models``. FileNotFoundError when neither holds one."""

@@ -81,6 +81,10 @@ class _CustomizedMixin:
         return build_generate_fn(self.model, max_length, with_scores,
                                  num_beams=1 if greedy else int(c.num_beam))
 
+    def _decodes_greedy(self) -> bool:
+        c = self.config
+        return bool(c.get("isgreedy", True) or int(c.get("num_beam", 1) or 1) <= 1)
+
     def _decoder_ids(self) -> dict:
         """The answer vocabulary's size and ids, as the config builders take
         them."""

@@ -10,6 +10,8 @@ card machine has no pandas.
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from ..data.adapters import textlayout_ocr_adapt
@@ -96,24 +98,54 @@ class LaTrExecutor(BaseExecutor):
             self._prepare_decode_tokenizer(rows, rows)
             self.predict_data = self._make_dataset(rows, *stores)
 
+    def _init_serve_mode(self):
+        """The tokenizers only: requests are featurized batch by batch by the
+        serving engine, against :attr:`serve_frames`. A BPE answer tokenizer
+        must load its saved vocabulary: serving has no answers to train one
+        on."""
+        self._create_tokenizers()
+        if "BPE" in str(self.config.get("DecodeTokenizer", "")):
+            vocab_path = self.config.get("vocab_save_path", "bpevocab.json")
+            if not os.path.isfile(vocab_path):
+                raise FileNotFoundError(f"serve mode requires the trained BPE vocab at "
+                                        f"{vocab_path!r} (run --mode train first)")
+        self._prepare_decode_tokenizer([], [])
+        self._serve_frames = None
+
+    @property
+    def serve_frames(self) -> tuple:
+        """(OCR store, object store or None), adapted at first access."""
+        if getattr(self, "_serve_frames", None) is None:
+            stores = self._adapt_frames()
+            self._serve_frames = (stores[0], stores[1] if len(stores) > 1 else None)
+        return self._serve_frames
+
     # -- model -----------------------------------------------------------------
 
     def _build_model(self):
         """The model on the meta device, then on ``self.device`` with seeded
         f32 random values (``SEED``): the masters, and through them the
-        compute weights."""
+        compute weights. In serve mode the model stays on the meta device
+        (``BaseExecutor._ensure_params``)."""
         log.info("# Building model architecture ...")
         self.model_config = self._build_model_config(
             MODEL_CONFIGS.get(self.config.MODEL_MOD_CONFIG_CLASS)())
         with torch.device("meta"):
-            model = self.model_class(self.model_config, device="meta")
-        self.model = model.to_empty(device=self.device)
-        generator = torch.Generator(device=self.device).manual_seed(self.config.get("SEED", 13))
-        params = bind_params(self.model, latr_mod.random_params(self.model, generator))
-        n = sum(p.numel() for p in params.values())
-        log.info(f"# Model parameters: {n / 1e6:.1f}M")
-        self.state = TrainState(params=params, opt_state=None)
+            self.model = self.model_class(self.model_config, device="meta")
         self.ckpt = CheckpointManager(self.config.SAVE_PATH)
+        n = sum(p.numel() for p in self.model.parameters())
+        log.info(f"# Model parameters: {n / 1e6:.1f}M")
+        if self.mode == "serve":
+            self._abstract_params = True
+            self.state = TrainState(params={}, opt_state=None)
+            return
+        self._materialize()
+        self.state = TrainState(params=bind_params(self.model, self._random_params()),
+                                opt_state=None)
+
+    def _random_params(self):
+        generator = torch.Generator(device=self.device).manual_seed(self.config.get("SEED", 13))
+        return latr_mod.random_params(self.model, generator)
 
     def _build_model_config(self, cfg_builder):
         return cfg_builder.build(self.config)

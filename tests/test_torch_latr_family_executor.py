@@ -25,7 +25,6 @@ import torch
 
 from phoneme_vqa_torch import config as t_config
 from phoneme_vqa_torch import run as t_run
-from phoneme_vqa_torch.data import adapters as t_adapters
 from phoneme_vqa_torch.data import synthetic as t_synthetic
 from phoneme_vqa_torch.models import bridge
 from phoneme_vqa_torch.serving import ServingEngine
@@ -184,21 +183,21 @@ def check_cli(case, tmp_path):
             t_run.main(["--config-file", yaml_path, "--mode", "eval"])
 
 
-def engine(ex, config, answer_tokenizer):
-    return ServingEngine(
-        ex.model, ex.tokenizer, t_adapters.textlayout_ocr_adapt(config.ocr_path),
-        config.base_img_path, batch_size=4, max_answer_length=config.max_eval_length,
-        max_ocr_element=config.max_ocr_element, max_ocr_length=config.max_ocr_length,
-        max_q_length=config.max_q_length, answer_tokenizer=answer_tokenizer,
-    )
+def serve_all(ex, config, requests, timeout=120):
+    """``requests`` through the gathered serving engine over ``ex`` and its
+    feature stores (batch 4), in order; each future waits at most
+    ``timeout`` seconds."""
+    with ServingEngine(ex, *ex.serve_frames, batch_size=4, max_wait_ms=20,
+                       max_answer_length=config.max_eval_length) as eng:
+        futures = [eng.submit(image_id, question) for image_id, question in requests]
+        return [f.result(timeout=timeout) for f in futures]
 
 
 def check_serving(trained):
     """The serving engine answers the validation requests as ``infer`` does,
     decoding with the executor's answer tokenizer where it has one."""
     _, _, t_cfg, t_ex = trained
-    got = engine(t_ex, t_cfg, getattr(t_ex, "decode_tokenizer", None)).answer(
-        serving_requests(t_cfg))
+    got = serve_all(t_ex, t_cfg, serving_requests(t_cfg))
     want = t_ex.infer(t_ex.val_data, 4, t_cfg.max_eval_length)
     assert got == want and len(got) == 6
 

@@ -23,7 +23,7 @@ from .test_torch_latr_family_executor import (
     check_pool,
     check_predict,
     check_two_epochs,
-    engine,
+    serve_all,
     serving_requests,
     train_pair,
 )
@@ -85,5 +85,5 @@ def test_phoneme_latr_memorization_gate_and_serving(tmp_path, one_thread):
     assert losses[-1] < losses[0] * 0.5, losses
     assert gens == want, list(zip(gens, want))
 
-    answers = engine(ex, config, ex.decode_tokenizer).answer(serving_requests(config))
+    answers = serve_all(ex, config, serving_requests(config))
     assert answers == gens

@@ -6,7 +6,6 @@ Flax initializes the weights; ``phoneme_vqa_torch.models.bridge`` copies them
 into the port; the same numpy inputs go through both.
 """
 
-import dataclasses
 import os
 
 import jax
@@ -16,6 +15,8 @@ import pandas as pd
 import pytest
 import torch
 
+from phoneme_vqa_torch import config as t_config
+from phoneme_vqa_torch import train  # noqa: F401  (registers the executors)
 from phoneme_vqa_torch.data import adapters as t_adapters
 from phoneme_vqa_torch.data import synthetic as t_synthetic
 from phoneme_vqa_torch.data.sal import SaLDataset as TSaLDataset
@@ -28,8 +29,9 @@ from phoneme_vqa_torch.models.generate import make_generate_fn as t_make_generat
 from phoneme_vqa_torch.ops import attention as t_attn
 from phoneme_vqa_torch.ops import flash_attention as t_flash
 from phoneme_vqa_torch.ops import sal_fused_attention as t_sfa
-from phoneme_vqa_torch.serving import SaLInputs, ServingEngine
+from phoneme_vqa_torch.serving import ServingEngine
 from phoneme_vqa_torch.tokenizers.backbone import FallbackSubwordTokenizer as TTok
+from phoneme_vqa_torch.utils.registry import EXECUTORS as T_EXECUTORS
 from phoneme_vqa_torch.utils.registry import MODEL_CONFIGS as T_MODEL_CONFIGS
 from phoneme_vqa_torch.utils.registry import MODELS as T_MODELS
 from phoneme_vqa_tpu import registry_setup  # noqa: F401
@@ -397,30 +399,22 @@ def test_serving_engine_answers_equal_jax_executor_infer(fixture_paths, tmp_path
     want = ex.infer(ex.val_data, 4, 10)
     params = jax.tree.map(np.asarray, ex._inference_params())
 
-    model = t_sal.SaL(t_sal.SaL_config().build(dict(config)), device="cpu").eval()
-    bridge.load_flax_params(model, params)
+    # the port's executor in eval mode: its offline tokenizer, which decodes
+    # only pieces it has encoded, has encoded the val answers as the JAX
+    # executor's has
+    t_ex = T_EXECUTORS.get(config.EXECUTOR)(t_config.Config(dict(config)), "eval",
+                                            device="cpu")
+    t_ex.load_params(bridge.flax_to_state_dict(params, t_ex.model))
+    ocr_store, obj_store = t_ex.serve_frames
     rows = t_synthetic.read_qa_csv(config.qa_val_path)
-    # the offline tokenizer decodes only pieces it has encoded; the JAX
-    # executor's has encoded the val answers while featurizing val_data
-    tokenizer = TTok(config.t5_vocab_size)
-    for r in rows:
-        tokenizer(r["answer"])
-    obj_store = t_adapters.textlayout_obj_adapt(config.base_obj_feature_path, 1, 1)
-    engine = ServingEngine(
-        model, tokenizer, t_adapters.textlayout_ocr_adapt(config.base_ocr_feature_path, 1, 1),
-        None, batch_size=4, max_answer_length=10, max_ocr_element=config.max_ocr_element,
-        max_ocr_length=config.max_ocr_length, max_q_length=config.max_q_length,
-        sal=SaLInputs(obj_store, config.base_ocr_feature_path, config.base_obj_feature_path,
-                      ocr_hidden=config.ocr_hidden, obj_hidden=config.obj_hidden,
-                      max_obj_element=config.max_obj_element,
-                      max_obj_length=config.max_obj_length),
-    )
     requests = [(r["image_id"], r["question"]) for r in rows]
-    got = engine.answer(requests)  # 6 requests: one full batch, one padded
+    with ServingEngine(t_ex, ocr_store, obj_store, batch_size=4, max_wait_ms=20,
+                       max_answer_length=10) as engine:
+        futures = [engine.submit(i, q) for i, q in requests]
+        got = [f.result(timeout=120) for f in futures]  # one full batch and one padded
     assert got == want
     # an image that only the OCR store holds
     fewer = {k: v for k, v in obj_store.items() if k != requests[0][0]}
-    other = ServingEngine(model, tokenizer, engine.ocr_store, None,
-                          sal=dataclasses.replace(engine.sal, obj_store=fewer))
-    with pytest.raises(KeyError, match="object"):
-        other.answer(requests)
+    with ServingEngine(t_ex, ocr_store, fewer, batch_size=4, warmup=False) as other:
+        with pytest.raises(KeyError, match="object"):
+            other.submit(*requests[0])

@@ -21,12 +21,10 @@ import torch
 
 from phoneme_vqa_torch import config as t_config
 from phoneme_vqa_torch import run as t_run
-from phoneme_vqa_torch.data import adapters as t_adapters
 from phoneme_vqa_torch.data import synthetic as t_synthetic
 from phoneme_vqa_torch.models import bridge
 from phoneme_vqa_torch.ops import attention as t_attn
 from phoneme_vqa_torch.phonology import preprocess_sentence
-from phoneme_vqa_torch.serving import SaLInputs, ServingEngine
 from phoneme_vqa_torch.tokenizers import PhonemeTokenizer
 from phoneme_vqa_torch.utils.registry import EXECUTORS as T_EXECUTORS
 from phoneme_vqa_tpu import registry_setup  # noqa: F401
@@ -34,7 +32,7 @@ from phoneme_vqa_tpu.config import get_config
 from phoneme_vqa_tpu.utils.registry import EXECUTORS
 
 from .fixtures import make_sal_fixture, tiny_sal_yaml
-from .test_torch_latr_family_executor import check_beam, check_pool
+from .test_torch_latr_family_executor import check_beam, check_pool, serve_all
 
 LOSS_TOL = 1e-5
 CUSTOM = dict(n_head=4, num_decoder_layers=2, MODEL_MOD_CONFIG_CLASS="CustomizedSaL_config",
@@ -230,22 +228,6 @@ def test_cli_trains_evaluates_and_predicts_phoneme_sal_on_the_cpu(paths, tmp_pat
             t_run.main(["--config-file", yaml_path, "--mode", "eval"])
 
 
-def _engine(ex, config):
-    obj_store = t_adapters.textlayout_obj_adapt(config.base_obj_feature_path, 1, 1)
-    return ServingEngine(
-        ex.model, ex.tokenizer,
-        t_adapters.textlayout_ocr_adapt(config.base_ocr_feature_path, 1, 1), None,
-        batch_size=4, max_answer_length=config.max_eval_length,
-        max_ocr_element=config.max_ocr_element, max_ocr_length=config.max_ocr_length,
-        max_q_length=config.max_q_length,
-        sal=SaLInputs(obj_store, config.base_ocr_feature_path, config.base_obj_feature_path,
-                      ocr_hidden=config.ocr_hidden, obj_hidden=config.obj_hidden,
-                      max_obj_element=config.max_obj_element,
-                      max_obj_length=config.max_obj_length),
-        answer_tokenizer=ex.decode_tokenizer,
-    )
-
-
 @pytest.fixture
 def one_thread():
     """Tiny matrices gain nothing from threads, and the suite's parallel
@@ -276,5 +258,5 @@ def test_phoneme_memorization_gate_and_serving(tmp_path, one_thread):
     assert gens == want, list(zip(gens, want))
 
     rows = t_synthetic.read_qa_csv(config.qa_val_path)
-    answers = _engine(ex, config).answer([(r["image_id"], r["question"]) for r in rows])
+    answers = serve_all(ex, config, [(r["image_id"], r["question"]) for r in rows])
     assert answers == gens

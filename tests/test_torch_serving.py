@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from phoneme_vqa_torch import config as t_config
+from phoneme_vqa_torch import train  # noqa: F401  (registers the executors)
 from phoneme_vqa_torch.data import adapters as t_adapters
 from phoneme_vqa_torch.data import synthetic as t_synthetic
 from phoneme_vqa_torch.data.latr import LaTrDataset as TLaTrDataset
@@ -24,6 +25,7 @@ from phoneme_vqa_torch.serving import ServingEngine
 from phoneme_vqa_torch.tokenizers import backbone as t_backbone
 from phoneme_vqa_torch.tokenizers.backbone import FallbackSubwordTokenizer as TTok
 from phoneme_vqa_torch.utils.registry import MODEL_CONFIGS as T_MODEL_CONFIGS
+from phoneme_vqa_torch.utils.registry import EXECUTORS as T_EXECUTORS
 from phoneme_vqa_torch.utils.registry import MODELS as T_MODELS
 from phoneme_vqa_tpu import registry_setup  # noqa: F401
 from phoneme_vqa_tpu.config import get_config
@@ -152,22 +154,18 @@ def test_serving_engine_answers_equal_jax_executor_infer(fixture_paths, tmp_path
     want = ex.infer(ex.val_data, 4, 10)
     params = jax.tree.map(np.asarray, ex._inference_params())
 
-    model = t_latr.LaTr(t_latr.LaTr_config().build(dict(config)), device="cpu").eval()
-    bridge.load_flax_params(model, params)
+    # the port's executor in eval mode: its offline tokenizer, which decodes
+    # only pieces it has encoded, has encoded the val answers as the JAX
+    # executor's has
+    t_ex = T_EXECUTORS.get(config.EXECUTOR)(t_config.Config(dict(config)), "eval",
+                                            device="cpu")
+    t_ex.load_params(bridge.flax_to_state_dict(params, t_ex.model))
     rows = t_synthetic.read_qa_csv(config.qa_val_path)
-    # the offline tokenizer decodes only pieces it has encoded; the JAX
-    # executor's has encoded the val answers while featurizing val_data
-    tokenizer = TTok(config.t5_vocab_size)
-    for r in rows:
-        tokenizer(r["answer"])
-    engine = ServingEngine(
-        model, tokenizer, t_adapters.textlayout_ocr_adapt(config.ocr_path),
-        config.base_img_path, batch_size=4, max_answer_length=10,
-        max_ocr_element=config.max_ocr_element, max_ocr_length=config.max_ocr_length,
-        max_q_length=config.max_q_length,
-    )
     requests = [(r["image_id"], r["question"]) for r in rows]
-    got = engine.answer(requests)  # 6 requests: one full batch, one padded
+    with ServingEngine(t_ex, *t_ex.serve_frames, batch_size=4, max_wait_ms=20,
+                       max_answer_length=10) as engine:
+        futures = [engine.submit(i, q) for i, q in requests]
+        got = [f.result(timeout=120) for f in futures]  # one full batch and one padded
     assert got == want
     assert len(got) == len(requests)
 
