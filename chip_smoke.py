@@ -154,6 +154,31 @@ Phases (any failure exits non-zero; nothing is caught and carried past):
     round trip loads the store; an HTTP server answers /answer, /stats,
     /metrics, /healthz, then drains on SIGTERM and exits 0
 
+18. weight import at full width: a LaTr-base T5 as t5/model.safetensors and a
+    ViT-base as vit/pytorch_model.bin, written with seeded values from the
+    committed manifest of transformers' layout (tests/data), imported through
+    pretrained_weights_path: every manifest key mapped, 0 failed; the f32
+    logits and greedy rows pass phase 5's gates; bf16 requests through the
+    gathered engine; load seconds and peak memory
+19. a full-width PhonemeSaL-base reference .pth converted by python -m
+    phoneme_vqa_torch.import_reference_ckpt and evaluated by python -m
+    phoneme_vqa_torch.run --mode eval; the converted checkpoint's answers
+    equal those of the in-process import
+20. LaTr-base with LORA_RANK 8, 20 steps at batch 16: optimizer state for the
+    adapters only, the base bit for bit unchanged, 48 launches a step, ms a
+    step and peak beside phase 7's; one f32 step kernels vs plain (7b's
+    yardstick); two serving adapters through one gathered engine, every
+    route's answers equal to an engine over its merged weights, the base
+    restored bit for bit, the switch ms
+21. REMAT on LaTr-base and SaL-base with dropout 0.1: an f32 step on vs off
+    within 7b's yardstick, the launches counted (84 and 24 SaL + 48 a step),
+    ms a step and peak in interleaved turns; GRAD_ACCUM_STEPS 4 against four
+    hand-run microbatches; a few steps of EMA_DECAY, adafactor and
+    OPT_MU_DTYPE bfloat16 with their optimizer-state bytes
+22. VIT_CACHE: LaTr-base eval over 64 questions on 16 images, answers equal
+    the uncached run's with 12 launches a batch (24 uncached); the serving
+    encoding cache hits, answers as an uncached engine, flushes on reload
+
 Prints the run's total seconds, a {"kernels": [...]} line, the card line, and last
 {"ok": true, "device": {...}}. Needs the repo's phoneme_vqa_torch package;
 imports no JAX.
@@ -161,6 +186,8 @@ imports no JAX.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import itertools
 import json
 import os
@@ -189,6 +216,7 @@ from phoneme_vqa_torch.decode import beam as beam_mod  # noqa: E402
 from phoneme_vqa_torch.decode.greedy import greedy_decode, multi_head_greedy_decode  # noqa: E402
 from phoneme_vqa_torch.decode.speculative import speculative_greedy_decode  # noqa: E402
 from phoneme_vqa_torch.models import custom_decoder as custom_decoder_mod  # noqa: E402
+from phoneme_vqa_torch.models import hf_import  # noqa: E402
 from phoneme_vqa_torch.models import t5 as t5_mod  # noqa: E402
 from phoneme_vqa_torch.models import vit as vit_mod  # noqa: E402
 from phoneme_vqa_torch.ops import _build  # noqa: E402
@@ -215,6 +243,7 @@ from phoneme_vqa_torch.train import (  # noqa: E402
     PreSTUExecutor,
     SaLExecutor,
 )
+from phoneme_vqa_torch.train import lora as lora_mod  # noqa: E402
 from phoneme_vqa_torch.train import state as train_state  # noqa: E402
 from phoneme_vqa_torch.utils.registry import EXECUTORS  # noqa: E402
 
@@ -1531,10 +1560,18 @@ def check_train_f32(phase, ex, per_step: dict, gate_grads: bool = True) -> dict:
     ``gate_grads`` off the gradients' and parameters' gaps against the
     yardstick are measured and printed but not held to it; the loss, the
     per-call bound and the 2-lr bound still are."""
-    start = {n: p.detach().clone() for n, p in ex.state.params.items()}
-    frozen = set(start) - set(ex.state.opt_state["mu"])  # e.g. a frozen ViT
+    # what the optimizer updates (the masters, or a LoRA run's adapters) and
+    # what it holds fixed (a frozen ViT, a LoRA run's base)
+    lora = ex.state.lora is not None
+    start = train_state.tree_map(lambda t: t.detach().clone(), ex._ckpt_params())
+    base = start["base"] if lora else start
+    frozen = set(base) - set(ex._trainable)
     batch, _ = next(batch_iterator(ex.train_data, 4))
     lr = ex._lr_schedule(0)
+
+    def restore():
+        ex.load_params(base, **({"lora": start["lora"]} if lora else {}))
+        ex.state.step = 0
 
     def one_step(attention=None):
         if attention is None:
@@ -1543,22 +1580,23 @@ def check_train_f32(phase, ex, per_step: dict, gate_grads: bool = True) -> dict:
             return _one_step()
 
     def _one_step():
-        ex.load_params(start)
-        ex.state.step = 0
+        restore()
         loss = ex.forward_loss(ex._to_device(batch))
         loss.backward()
-        grads = {n: g.clone() for n, g in
-                 train_state.master_grads(ex.model, ex.state.params, ex._trainable).items()}
-        ex.apply_gradients()
+        grads = ex._collect_grads()
+        kept = {n: g.clone() for n, g in grads.items()}
+        ex.apply_gradients(grads)
         torch.cuda.synchronize()
-        return (float(loss.detach()), grads,
-                {n: p.detach().clone() for n, p in ex.state.params.items()})
+        for n in frozen:
+            if not torch.equal(ex.state.params[n], base[n]):
+                raise AssertionError(f"{phase}: the frozen {n} moved")
+        return (float(loss.detach()), kept,
+                {n: p.detach().clone() for n, p in ex._opt_params().items()})
 
     # how far the kernels part from the plain path in this step's own forward
     # (the same inputs and dropout masks)
     with attention_error_measured() as measured, torch.no_grad():
-        ex.load_params(start)
-        ex.state.step = 0
+        restore()
         ex.forward_loss(ex._to_device(batch))
     loose = {m: e for m, e in measured.worst.items() if not e <= KERNEL_CALL_RTOL}
     if not measured.worst or loose:
@@ -1576,8 +1614,9 @@ def check_train_f32(phase, ex, per_step: dict, gate_grads: bool = True) -> dict:
     if not loss_err <= LOSS_RTOL:
         raise AssertionError(f"{phase}: loss {k_loss} vs plain {p_loss}")
 
-    def gap(grads):
-        return {n: float((grads[n] - g).norm() / g.norm()) for n, g in p_grads.items()}
+    def gap(grads):  # a gradient that is 0 on every path (a LoRA run's a at b = 0) gaps 0
+        return {n: float((grads[n] - g).norm() / g.norm().clamp_min(1e-30))
+                for n, g in p_grads.items()}
 
     rel, noise = gap(k_grads), gap(n_grads)
     for n in rel:
@@ -1587,9 +1626,6 @@ def check_train_f32(phase, ex, per_step: dict, gate_grads: bool = True) -> dict:
                                  f"(kernel error by module {measured.worst})")
     far, n_entries = {"kernel": 0, "noisy": 0}, 0
     for n, p in p_params.items():
-        if n in frozen and not (torch.equal(k_params[n], start[n])
-                                and torch.equal(p, start[n])):
-            raise AssertionError(f"{phase}: the frozen {n} moved")
         # p +- lr rounds to f32: up to an ulp of p on each side
         bound = 2 * lr + 2 * torch.finfo(torch.float32).eps * p.abs()
         for key, params in (("kernel", k_params), ("noisy", n_params)):
@@ -1611,7 +1647,7 @@ def check_train_f32(phase, ex, per_step: dict, gate_grads: bool = True) -> dict:
            "params_parted_over_lr_100": far, "param_entries": n_entries, "lr": lr,
            "kernel_rel_err_by_module": measured.worst, "noise": NOISE,
            "grads_compared": len(rel), "vit_grads_compared": sum(n.startswith("vit.") for n in rel),
-           "frozen_tensors": len(frozen)}
+           "frozen_tensors": len(frozen), "lora": lora}
     allowed = f"allowed {GRAD_NOISE_FACTOR}" if gate_grads else "measured, not gated"
     log(f"{phase}: f32 train step (batch 4, dropout {out['dropout_rate']}) kernels vs plain "
         f"(kernel calls part from the plain path by at most {json.dumps(measured.worst)} of "
@@ -2737,6 +2773,654 @@ def cli_phase(paths, root) -> dict:
     return out
 
 
+# -- phases 18-22: fine-tuning from pretrained weights ------------------------
+
+HF_MANIFEST = os.path.join(REPO, "tests", "data", "latr_base_hf_manifest.json")
+LORA_RANK = 8
+
+
+def opt_state_bytes(tree) -> int:
+    """Bytes of the tensors in an optimizer state (or any nested dict)."""
+    if isinstance(tree, dict):
+        return sum(opt_state_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size() if isinstance(tree, torch.Tensor) else 0
+
+
+def seeded_array(g, key: str, shape) -> np.ndarray:
+    """A seeded f32 value for a checkpoint tensor: norm scales near 1,
+    biases and position tables small, matrices and tables N(0, fan_in^-1/2)."""
+    shape = tuple(shape)
+    x = g.standard_normal(shape, dtype=np.float32)
+    leaf = key.rsplit(".", 1)[-1]
+    if "norm" in key and leaf == "weight":
+        return 1.0 + 0.1 * x
+    if leaf == "bias" or "position_embeddings" in key or "cls_token" in key:
+        return 0.02 * x
+    if len(shape) >= 2:
+        return x * np.float32(int(np.prod(shape[1:])) ** -0.5)
+    return x
+
+
+def write_safetensors(path: str, tensors: dict) -> None:
+    """f32 numpy arrays as a .safetensors file: an 8-byte little-endian header
+    length, a JSON header of dtype, shape and byte offsets, the raw bytes
+    (the card machine has no safetensors package)."""
+    header, offset = {}, 0
+    for key, a in tensors.items():
+        header[key] = {"dtype": "F32", "shape": list(a.shape),
+                       "data_offsets": [offset, offset + a.nbytes]}
+        offset += a.nbytes
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little"))
+        f.write(raw)
+        for a in tensors.values():
+            f.write(np.ascontiguousarray(a, "<f4").tobytes())
+
+
+def import_phase(root, encode_launches, e2e_launches) -> dict:
+    """Phase 18: a LaTr-base T5 (``t5/model.safetensors``) and ViT-base
+    (``vit/pytorch_model.bin``) written with seeded values from the committed
+    manifest of transformers' key layout (tests/data), imported through
+    ``pretrained_weights_path``: every manifest key mapped, none failed, the
+    masters the files' values; f32 logits and greedy rows kernels vs plain
+    (phase 5's gates); bf16 requests through the gathered engine."""
+    phase = "phase 18"
+    with open(HF_MANIFEST, encoding="utf-8") as f:
+        manifest = json.load(f)
+    weights = os.path.join(root, "pretrained")
+    t0 = time.perf_counter()
+    for i, (name, entry) in enumerate(manifest.items()):
+        os.makedirs(os.path.join(weights, name))
+        g = np.random.default_rng(SEED + 100 + i)
+        tensors = {k: seeded_array(g, k, shape) for k, shape in entry["tensors"]}
+        path = os.path.join(weights, name, entry["file"])
+        if path.endswith(".safetensors"):
+            write_safetensors(path, tensors)
+            written = tensors["shared.weight"][:4].copy()  # to hold the import to
+        else:
+            torch.save({k: torch.from_numpy(v) for k, v in tensors.items()}, path)
+        del tensors
+    write_s = time.perf_counter() - t0
+    want_keys = {k for entry in manifest.values() for k, _ in entry["tensors"]}
+    paths = latr_fixture(os.path.join(root, "import"))
+    reqs = requests()
+    out = {"manifest_tensors": len(want_keys), "write_s": write_s,
+           "checkpoint_gb": sum(os.path.getsize(os.path.join(weights, n, e["file"]))
+                                for n, e in manifest.items()) / 1e9}
+    for dtype in ("float32", "bfloat16"):
+        gc_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        ex = EXECUTORS.get("LaTr_Executor")(latr_train_config(
+            paths, os.path.join(root, "import_ckpts"), DTYPE=dtype,
+            pretrained_weights_path=weights), "serve", device=DEVICE)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        report = ex.import_report
+        if report.failed or report.unused or set(report.mapped) != want_keys:
+            raise AssertionError(f"{phase}: import report failed {report.failed[:3]}, unused "
+                                 f"{report.unused[:3]}, mapped {len(report.mapped)} of "
+                                 f"{len(want_keys)} manifest keys")
+        if not np.array_equal(ex.state.params["t5.shared.weight"][:4].detach().cpu().numpy(),
+                              written):
+            raise AssertionError(f"{phase}: t5.shared.weight is not the file's")
+        ex.model.eval()
+        out[dtype] = {"load_s": load_s, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                      "mapped": len(report.mapped), "failed": len(report.failed),
+                      "unfilled": report.unfilled}
+        if dtype == "float32":
+            out[dtype]["end_to_end"] = check_end_to_end_f32(phase, ex.model, first_batch(ex, reqs),
+                                                            e2e_launches)
+        else:
+            with ServingEngine(ex, *ex.serve_frames, batch_size=BATCH, max_wait_ms=20,
+                               max_answer_length=MAX_ANSWER) as engine:
+                out[dtype]["served"] = serve(phase, "LaTr-base (imported weights)", engine, reqs,
+                                             encode_launches)
+        log(f"{phase}: LaTr-base {dtype} from {len(want_keys)} HF tensors "
+            f"({out['checkpoint_gb']:.2f} GB, written in {write_s:.1f} s): import report mapped "
+            f"{len(report.mapped)}, failed {len(report.failed)}, unused {len(report.unused)}, "
+            f"unfilled (keep the seeded init) {report.unfilled}; executor built and imported in "
+            f"{load_s:.1f} s, peak {out[dtype]['peak_gb']:.2f} GB")
+        del ex
+    shutil.rmtree(weights)
+    gc_cuda()
+    return out
+
+
+def gc_cuda() -> None:
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def reference_state_dict(ex, seed: int) -> dict:
+    """A PhonemeSaL reference model's ``state_dict()`` (the original torch
+    repository's layout) at the executor's widths, seeded: the HF T5
+    encoder under ``encoder.`` (keys of the manifest's T5, the vocabulary
+    one context token larger), ``rel2Dbias``, the OCR and object projectors
+    and norms, a plain ``nn.Embedding`` ``tgt_tok_emb``, torch
+    ``nn.TransformerDecoder`` layers under ``decoder.decoder.`` and the
+    ``lm_head``."""
+    with open(HF_MANIFEST, encoding="utf-8") as f:
+        t5_keys = json.load(f)["t5"]["tensors"]
+    shapes = {n: tuple(p.shape) for n, p in ex.model.named_parameters()}
+    vocab, d = shapes["t5.shared.weight"]
+    g = np.random.default_rng(seed)
+    sd = {}
+    for key, shape in t5_keys:
+        if key == "shared.weight":
+            shape = (vocab, d)
+        elif not key.startswith("encoder."):
+            continue  # an encoder-only T5: no decoder keys
+        sd[f"encoder.{key}"] = seeded_array(g, key, shape)
+    sd["rel2Dbias.Relative1D.relative_attention_bias.weight"] = seeded_array(
+        g, "table", shapes["rel2d.rel1d.weight"])
+    sd["rel2Dbias.SCP.relative_attention_bias.weight"] = seeded_array(
+        g, "table", shapes["rel2d.scp.weight"])
+    for stream in ("ocr", "obj"):
+        for mod in ("feature_projector", "bbox_projector"):
+            for leaf in ("weight", "bias"):
+                key = f"{stream}_{mod}.{leaf}"
+                sd[key] = seeded_array(g, key, shapes[key])
+        sd[f"{stream}_feature_layer_norm.weight"] = seeded_array(
+            g, "norm.weight", shapes[f"{stream}_norm.weight"])
+    n_layers = len({n.split(".")[1] for n in shapes if n.startswith("decoder.layer_")})
+    dim_ff = shapes["decoder.layer_0.fc1.weight"][0]
+    with torch.device("meta"):
+        layers = torch.nn.TransformerDecoder(torch.nn.TransformerDecoderLayer(
+            d, PSAL_FULL["n_head"], dim_ff), n_layers)
+    for key, t in layers.state_dict().items():
+        sd[f"decoder.decoder.{key}"] = seeded_array(g, key, t.shape)
+    tgt = shapes["decoder.embed.weight"]
+    sd["tgt_tok_emb.weight"] = seeded_array(g, "table", tgt)
+    sd["lm_head.weight"] = seeded_array(g, "lm_head.weight", tgt)
+    sd["lm_head.bias"] = seeded_array(g, "lm_head.bias", tgt[:1])
+    return sd
+
+
+def converter_phase(psal_paths, root) -> dict:
+    """Phase 19: a full-width PhonemeSaL-base reference .pth converted by
+    ``python -m phoneme_vqa_torch.import_reference_ckpt`` (a subprocess, its
+    config as JSON) into best_ckp, evaluated by ``python -m
+    phoneme_vqa_torch.run --mode eval``; in process, the converted
+    checkpoint's answers equal those of the in-process import of the same
+    state dict, 12 SaL launches a batch."""
+    phase = "phase 19"
+    save = os.path.join(root, "converted")
+    cfg = phoneme_train_config(psal_paths, save, SAVE=True)
+    cfg_path = os.path.join(root, "phoneme_sal_base.json")
+    with open(cfg_path, "w", encoding="utf-8") as f:
+        json.dump(dict(cfg), f)
+    shapes_ex = EXECUTORS.get(cfg.EXECUTOR)(cfg, "serve", device=DEVICE)  # meta: shapes only
+    sd = reference_state_dict(shapes_ex, SEED + 200)
+    del shapes_ex
+    pth = os.path.join(root, "phoneme_sal_reference.pth")
+    torch.save({"state_dict": {k: torch.from_numpy(v) for k, v in sd.items()}, "epoch": 2,
+                "step": 40, "best_score": 0.25}, pth)
+    out = {"reference_tensors": len(sd), "pth_gb": os.path.getsize(pth) / 1e9}
+    device = ["--device", DEVICE.type]
+    for key, argv in (("convert", ["-m", "phoneme_vqa_torch.import_reference_ckpt",
+                                   "--config-file", cfg_path, "--ckpt", pth, "--name", "best",
+                                   *device]),
+                      ("eval_cli", ["-m", "phoneme_vqa_torch.run", "--config-file", cfg_path,
+                                    "--mode", "eval", "--evaltype", "best", *device])):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, *argv], cwd=REPO, capture_output=True, text=True,
+                           timeout=600)
+        out[f"{key}_s"] = time.perf_counter() - t0
+        if r.returncode != 0:
+            raise AssertionError(f"{phase}: {' '.join(argv[:2])} exited {r.returncode}:\n"
+                                 f"{r.stderr[-3000:]}")
+        if key == "convert" and "FAILED" in r.stderr:
+            raise AssertionError(f"{phase}: the conversion reported failures:\n{r.stderr[-3000:]}")
+    ev = EXECUTORS.get(cfg.EXECUTOR)(cfg, "eval", evaltype="best", device=DEVICE)
+    ev._load_trained_checkpoint("best")
+    reset_launches()
+    converted = ev.infer(ev.val_data, BATCH, PSAL_ANSWER)
+    torch.cuda.synchronize()
+    check_launches(phase, launches(), {"flash_attention": 0,
+                                       "sal_fused_attention": T5_BASE["num_encoder_layers"]})
+    del ev
+    ref = EXECUTORS.get(cfg.EXECUTOR)(cfg, "eval", device=DEVICE)
+    report = hf_import.ImportReport()
+    ref.load_params(hf_import.import_reference_state_dict(ref._ensure_params(), sd, report))
+    in_process = ref.infer(ref.val_data, BATCH, PSAL_ANSWER)
+    if report.failed or converted != in_process:
+        raise AssertionError(f"{phase}: failed {report.failed[:3]}; converted answers "
+                             f"{converted[:3]} != in-process {in_process[:3]}")
+    out.update(mapped=len(report.mapped), answers=len(converted), first_answer=converted[0])
+    log(f"{phase}: PhonemeSaL-base reference .pth ({len(sd)} tensors, {out['pth_gb']:.2f} GB) "
+        f"converted in {out['convert_s']:.1f} s, --mode eval in {out['eval_cli_s']:.1f} s (both "
+        f"exit 0); {len(report.mapped)} tensors mapped, 0 failed; the converted checkpoint's "
+        f"{len(converted)} answers equal the in-process import's: {converted[:2]}")
+    del ref
+    gc_cuda()
+    return out
+
+
+def lora_phase(paths, root, encode_step, trained7) -> dict:
+    """Phase 20: LaTr-base with ``LORA_RANK`` 8 (attention projections), 20
+    steps at batch 16 through LaTrExecutor: optimizer state for the adapters
+    only, the base bit for bit unchanged, 48 launches a step, ms a step and
+    peak beside phase 7's; one f32 step kernels vs plain (phase 7b's
+    yardstick); two serving adapters through the gathered engine: each
+    route's answers equal an engine's over that adapter's merged weights,
+    the base restored bit for bit, the switch ms."""
+    phase = "phase 20"
+    gc_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = latr_train_config(paths, os.path.join(root, "lora_ckpts"), LORA_RANK=LORA_RANK,
+                            SAVE=False)
+    ex = LaTrExecutor(cfg, "train", device=DEVICE)
+    base0 = {n: p.detach().clone() for n, p in ex.state.params.items()}
+    names = {f"{n}.{k}" for n in ex.state.lora for k in ("a", "b")}
+    if set(ex.state.opt_state["mu"]) != names or set(ex.state.opt_state["nu"]) != names:
+        raise AssertionError(f"{phase}: optimizer state beyond the adapters")
+    batches = [b for b, _ in itertools.islice(batch_iterator(
+        ex.train_data, TRAIN_BATCH, shuffle=True, seed=SEED + 1, drop_last=True), TRAIN_STEPS)]
+    reset_launches()
+    loss = ex.forward_loss(ex._to_device(batches[0]))
+    loss.backward()
+    ex.apply_gradients()
+    torch.cuda.synchronize()
+    step_launches = launches()
+    check_launches(phase, step_launches, encode_step_plus_decoder(encode_step))
+    losses = [float(loss)]
+    ms = timed_steps(ex, batches[1:])
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    # the frozen ViT runs without gradients (as JAX stops them at its
+    # output): its adapters take none and stay at their zero b
+    vit = [n for n in ex.state.lora if n.startswith("vit.")]
+    moved = [n for n, ad in ex.state.lora.items() if ad["b"].abs().max() > 0]
+    unchanged = all(torch.equal(p, base0[n]) for n, p in ex.state.params.items())
+    if not unchanged or sorted(moved) != sorted(set(ex.state.lora) - set(vit)):
+        raise AssertionError(f"{phase}: base unchanged {unchanged}, {len(moved)} of "
+                             f"{len(ex.state.lora)} adapters moved ({len(vit)} on the ViT)")
+    check_losses(phase, losses)
+    out = {"adapters": len(ex.state.lora), "adapter_params_m": sum(
+        t.numel() for t in ex._opt_params().values()) / 1e6,
+        "base_params_m": sum(p.numel() for p in ex.state.params.values()) / 1e6,
+        "opt_state_gb": opt_state_bytes(ex.state.opt_state) / 1e9, "ms_per_step": ms,
+        "peak_gb": peak, "phase7_ms_per_step": trained7["ms_per_step"],
+        "phase7_peak_gb": trained7["peak_memory_gb"], "base_bit_identical": unchanged,
+        "launches_per_step": step_launches}
+    log(f"{phase}: LaTr-base LoRA rank {LORA_RANK} ({out['adapter_params_m']:.2f}M adapter "
+        f"parameters over a frozen {out['base_params_m']:.1f}M base): optimizer state "
+        f"{out['opt_state_gb'] * 1e3:.1f} MB for the adapters only, base bit-identical after "
+        f"{TRAIN_STEPS} steps, {ms:.1f} ms a step, peak {peak:.2f} GB (phase 7, full fine-tune: "
+        f"{trained7['ms_per_step']:.1f} ms, {trained7['peak_memory_gb']:.2f} GB)")
+    trained_lora = {n: {k: t.detach().clone() for k, t in ad.items()}
+                    for n, ad in ex.state.lora.items()}
+    scale = ex._lora_scale
+    del ex, batches, base0
+    gc_cuda()
+    out["f32_step"] = check_train_f32(phase, LaTrExecutor(latr_train_config(
+        paths, os.path.join(root, "f32"), DTYPE="float32", TRAIN_BATCH_SIZE=4, SAVE=False,
+        LORA_RANK=LORA_RANK), "train", device=DEVICE), encode_step_plus_decoder(encode_step))
+    out["serving"] = adapter_serving(paths, root, trained_lora, scale)
+    return out
+
+
+def encode_step_plus_decoder(encode_step) -> dict:
+    """A LaTr-base train step's launches: the ViT and encoder layers, and the
+    decoder's self and cross layers (48)."""
+    n_dec = T5_BASE["num_t5_decoder_layers"]
+    return {"flash_attention": encode_step["flash_attention"] + 2 * n_dec,
+            "sal_fused_attention": 0}
+
+
+def adapter_serving(paths, root, trained_lora, scale) -> dict:
+    """Phase 20's serving half: adapters a1 (phase 20's trained ones) and a2
+    (seeded, b ~ N(0, 0.05)) on a bf16 LaTr-base gathered engine; every route
+    of 64 requests against an engine over the merged weights."""
+    phase = "phase 20"
+    save = os.path.join(root, "adapter_serve")
+    cfg = latr_train_config(paths, save)
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 300)
+    a2 = {n: {"a": ad["a"].clone(), "b": torch.randn(ad["b"].shape, generator=g,
+                                                     device=DEVICE) * 0.05}
+          for n, ad in trained_lora.items()}
+    adapters = {"a1": {"lora": trained_lora, "scale": scale}, "a2": {"lora": a2, "scale": scale}}
+    reqs = requests()
+    want = {}
+    for route in (None, "a1", "a2"):
+        ex = serve_executor(cfg)
+        if route is not None:
+            ex.load_params(lora_mod.merge_lora(ex.state.params, adapters[route]["lora"], scale))
+        with ServingEngine(ex, *ex.serve_frames, batch_size=BATCH, max_wait_ms=20,
+                           max_answer_length=MAX_ANSWER) as engine:
+            want[route] = answer_all(engine, reqs)
+        del ex, engine
+        gc_cuda()
+    ex = serve_executor(cfg)
+    base = {n: p.detach().clone() for n, p in ex.model.named_parameters()}
+    routed = [(i, q, (None, "a1", "a2")[n % 3]) for n, (i, q) in enumerate(reqs)]
+    with ServingEngine(ex, *ex.serve_frames, batch_size=BATCH, max_wait_ms=20,
+                       max_answer_length=MAX_ANSWER, adapters=adapters) as engine:
+        answer_all(engine, reqs[:BATCH])  # warm-up
+        t0 = time.perf_counter()
+        futures = [engine.submit(i, q, adapter=a) for i, q, a in routed]
+        got = [f.result(timeout=FUTURE_TIMEOUT) for f in futures]
+        wall = time.perf_counter() - t0
+        stats = engine.stats()
+        engine._activate(None)
+    restored = all(torch.equal(p, base[n]) for n, p in ex.model.named_parameters())
+    bad = [n for n, (i, q, a) in enumerate(routed) if got[n] != want[a][n]]
+    if bad or not restored:
+        raise AssertionError(f"{phase}: {len(bad)} routed answers differ from their merged "
+                             f"engines' (first {bad[:3]}); base restored {restored}")
+    differs = {a: sum(x != y for x, y in zip(want[a], want[None])) for a in ("a1", "a2")}
+    out = {"requests": len(routed), "answers_per_s": len(routed) / wall,
+           "switches": stats["adapter_switches"], "switch_ms": stats["adapter_switch_ms"],
+           "base_restored_bit_identical": restored, "answers_differing_from_base": differs}
+    log(f"{phase}: adapters a1 (trained) and a2 through one engine, {len(routed)} requests "
+        f"round robin over base/a1/a2: every answer equals its merged engine's; "
+        f"{stats['adapter_switches']} switches of "
+        f"{np.median(stats['adapter_switch_ms']):.1f} ms median "
+        f"(max {max(stats['adapter_switch_ms']):.1f}); base restored bit for bit; answers "
+        f"differing from the base's: {differs}; {out['answers_per_s']:.1f} answers/s")
+    del ex, engine
+    gc_cuda()
+    return out
+
+
+def set_remat(ex, on: bool) -> None:
+    for stack in (ex.model.t5.encoder, getattr(ex.model.t5, "decoder", None)):
+        if stack is not None:
+            stack.cfg = dataclasses.replace(stack.cfg, remat=on)
+
+
+def remat_f32_check(phase, ex, per_step_on, per_step_off) -> dict:
+    """One f32 step (batch 4, dropout 0.1): loss and every gradient with
+    REMAT on against off, both through the kernels, held to phase 7b's
+    yardstick (the noisy plain path against the plain path, REMAT off); the
+    launches of each counted."""
+    start = {n: p.detach().clone() for n, p in ex.state.params.items()}
+    batch, _ = next(batch_iterator(ex.train_data, 4))
+
+    def grads_of(remat, attention=None):
+        set_remat(ex, remat)
+        ex.load_params(start)
+        ex.state.step = 0
+        with attention_replaced(attention) if attention else contextlib.nullcontext():
+            loss = ex.forward_loss(ex._to_device(batch))
+            loss.backward()
+        grads = {n: g.clone() for n, g in ex._collect_grads().items()}
+        torch.cuda.synchronize()
+        return float(loss.detach()), grads
+
+    reset_launches()
+    on_loss, on = grads_of(True)
+    check_launches(f"{phase} REMAT on", launches(), per_step_on)
+    reset_launches()
+    off_loss, off = grads_of(False)
+    check_launches(f"{phase} REMAT off", launches(), per_step_off)
+    _, plain = grads_of(False, plain_attention)
+    _, noisy = grads_of(False, noisy_attention(torch.Generator(device=DEVICE).manual_seed(SEED)))
+    if not abs(on_loss - off_loss) <= LOSS_RTOL * abs(off_loss):
+        raise AssertionError(f"{phase}: loss {on_loss} with REMAT, {off_loss} without")
+    worst, identical = 0.0, 0
+    for n, g in off.items():
+        norm = float(g.norm())
+        gap = float((on[n] - g).norm()) / max(norm, 1e-30)
+        noise = float((noisy[n] - plain[n]).norm()) / max(float(plain[n].norm()), 1e-30)
+        if not gap <= GRAD_NOISE_FACTOR * noise + GRAD_FLOOR:
+            raise AssertionError(f"{phase}: REMAT moves the gradient of {n} by {gap:.3e} of its "
+                                 f"norm, the yardstick {noise:.3e}")
+        worst = max(worst, gap)
+        identical += int(torch.equal(on[n], g))
+    out = {"loss_on": on_loss, "loss_off": off_loss, "worst_grad_gap": worst,
+           "grads_bit_identical": identical, "grads": len(off)}
+    log(f"{phase}: f32 step, dropout {ex.config.dropout_rate}: REMAT on vs off loss "
+        f"{on_loss:.6f} vs {off_loss:.6f}; {identical} of {len(off)} gradients bit-identical, "
+        f"the widest gap {worst:.2e} of its norm (allowed {GRAD_NOISE_FACTOR} x the noisy "
+        f"plain path's + {GRAD_FLOOR})")
+    del ex
+    gc_cuda()
+    return out
+
+
+def remat_timing(phase, ex, batches, per_step_on, per_step_off) -> dict:
+    """ms a step and peak with REMAT on and off in interleaved turns (off,
+    on, on, off) on one bf16 executor; the launches of each turn's first
+    step counted."""
+    out = {"on": [], "off": []}
+    for remat in (False, True, True, False):
+        set_remat(ex, remat)
+        gc_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        loss = ex.forward_loss(ex._to_device(batches[0]))
+        loss.backward()
+        ex.apply_gradients()
+        torch.cuda.synchronize()
+        check_launches(f"{phase} REMAT {remat}", launches(), per_step_on if remat else per_step_off)
+        ms = timed_steps(ex, batches[1:])
+        out["on" if remat else "off"].append(
+            {"ms_per_step": ms, "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return out
+
+
+def knob_steps(phase, title, ex, batches, **knob) -> dict:
+    """A few bf16 steps at batch 16 of a LaTr-base executor after setting
+    ``knob`` in its config (the optimizer rebuilt and started afresh, an
+    EMA seeded from the masters): losses finite, ms a step (all but the
+    first), peak, the optimizer state's and the EMA's bytes."""
+    ex.config.update(knob)
+    ex.tx = ex._make_optimizer(ex._lr_schedule)
+    ex.state.opt_state = ex.tx.init(ex._opt_params())
+    ex._bind_optimizer()
+    ex.state.ema_params = (train_state.tree_map(lambda t: t.detach().clone(), ex._ckpt_params())
+                           if ex._ema_decay() else None)
+    gc_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    check_losses(phase, [float(ex.train_step(batches[0]))])
+    ms = timed_steps(ex, batches[1:])
+    out = {"ms_per_step": ms, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "opt_state_gb": opt_state_bytes(ex.state.opt_state) / 1e9,
+           "ema_gb": opt_state_bytes(ex.state.ema_params or {}) / 1e9}
+    log(f"{phase}: {title}: {json.dumps(out)}")
+    return out
+
+
+def accum_check(phase, paths, root) -> dict:
+    """GRAD_ACCUM_STEPS 4 at batch 16 (f32 loss and gradients, bf16 compute,
+    dropout 0.1): the executor's accumulated step against four sequential
+    microbatches run by hand (each its own dropout stream), and the peak of
+    the accumulated step against one of the whole batch."""
+    cfg = latr_train_config(paths, os.path.join(root, "accum"), GRAD_ACCUM_STEPS=4, SAVE=False)
+    ex = LaTrExecutor(cfg, "train", device=DEVICE)
+    start = {n: p.detach().clone() for n, p in ex.state.params.items()}
+    batch, _ = next(batch_iterator(ex.train_data, TRAIN_BATCH))
+    peaks = {}
+
+    def restore():  # a copy each time: an f32 value becomes the master itself
+        ex.load_params({n: t.clone() for n, t in start.items()})
+        ex.state.step = 0
+
+    for accum in (1, 4):
+        ex.config["GRAD_ACCUM_STEPS"] = accum
+        restore()
+        gc_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        ex.train_step(batch)
+        torch.cuda.synchronize()
+        peaks[accum] = torch.cuda.max_memory_allocated() / 1e9
+    after = {n: p.detach().clone() for n, p in ex.state.params.items()}
+    restore()
+    rows, summed, total = TRAIN_BATCH // 4, None, 0.0
+    for i in range(4):
+        micro = {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
+        loss = ex.forward_loss(ex._to_device(micro), micro=i)
+        loss.backward()
+        grads = ex._collect_grads()
+        total += float(loss)
+        summed = grads if summed is None else {n: summed[n] + grads[n] for n in grads}
+    ex.apply_gradients({n: g / 4 for n, g in summed.items()})
+    lr = ex._lr_schedule(0)
+    worst = 0.0
+    for n, p in after.items():  # adam moves by up to ~lr: 2 lr and an ulp of p either way
+        diff = (ex.state.params[n] - p).abs()
+        worst = max(worst, float(diff.max()))
+        if not bool((diff <= 2 * lr + 2 * torch.finfo(torch.float32).eps * p.abs()).all()):
+            raise AssertionError(f"{phase}: the accumulated step parts from four hand-run "
+                                 f"microbatches by {float(diff.max())} at {n} (2 lr = {2 * lr})")
+    identical = sum(torch.equal(ex.state.params[n], p) for n, p in after.items())
+    out = {"peak_gb_whole_batch": peaks[1], "peak_gb_accum_4": peaks[4],
+           "params_bit_identical": identical, "params": len(after), "worst_param_gap": worst}
+    log(f"{phase}: GRAD_ACCUM_STEPS 4 at batch 16: {identical} of {len(after)} masters "
+        f"bit-identical to four hand-run microbatches (widest gap {worst:.2e}, lr {lr:.0e}); "
+        f"peak {peaks[4]:.2f} GB against {peaks[1]:.2f} GB for the whole batch at once")
+    del ex
+    gc_cuda()
+    return out
+
+
+def remat_phase(paths, psal_paths, root, encode_step, sal_step) -> dict:
+    """Phase 21: REMAT on LaTr-base and SaL-base with dropout 0.1 (f32 step on
+    against off within the yardstick; the launches counted; ms a step and
+    peak in interleaved turns at batch 16); GRAD_ACCUM_STEPS 4 against four
+    hand-run microbatches; a few steps of EMA_DECAY, adafactor and
+    OPT_MU_DTYPE bf16 with their optimizer-state bytes."""
+    phase = "phase 21"
+    n_t5, n_dec = T5_BASE["num_encoder_layers"], T5_BASE["num_t5_decoder_layers"]
+    latr_off = encode_step_plus_decoder(encode_step)
+    # the recompute reruns every T5 block's forward: the encoder's and the
+    # decoder's self and cross layers again; the frozen ViT is not rerun
+    latr_on = {"flash_attention": latr_off["flash_attention"] + n_t5 + 2 * n_dec,
+               "sal_fused_attention": 0}
+    sal_on = {"flash_attention": 2 * sal_step["flash_attention"],
+              "sal_fused_attention": 2 * sal_step["sal_fused_attention"]}
+    sal_keys = dict(EXECUTOR="SaL_Executor", MODEL_CLASS="SaL", MODEL_MOD_CONFIG_CLASS="SaL_config")
+    out = {}
+    for name, make, per_off, per_on in (
+            ("latr", lambda **kw: LaTrExecutor(latr_train_config(
+                paths, os.path.join(root, "remat"), SAVE=False, REMAT=True, **kw), "train",
+                device=DEVICE), latr_off, latr_on),
+            ("sal", lambda **kw: SaLExecutor(phoneme_train_config(
+                psal_paths, os.path.join(root, "remat_sal"), SAVE=False, REMAT=True,
+                **sal_keys, **kw), "train", device=DEVICE), sal_step, sal_on)):
+        f32 = remat_f32_check(f"{phase} {name}", make(DTYPE="float32", TRAIN_BATCH_SIZE=4),
+                              per_on, per_off)
+        ex = make()
+        batches = [b for b, _ in itertools.islice(batch_iterator(
+            ex.train_data, TRAIN_BATCH, shuffle=True, seed=SEED + 3, drop_last=True), 5)]
+        timing = remat_timing(f"{phase} {name}", ex, batches, per_on, per_off)
+        out[name] = {"f32": f32, "timing": timing, "launches_on": per_on, "launches_off": per_off}
+        log(f"{phase}: {name} REMAT launches a step {per_on} (off: {per_off}); interleaved "
+            f"off/on/on/off at batch 16: {json.dumps(timing)}")
+        if name == "latr":  # the optimizer knobs on the same executor, REMAT off
+            set_remat(ex, False)
+            out["knobs"] = {title: knob_steps(phase, title, ex, batches, **knob) for title, knob in (
+                ("adam", {}), ("EMA_DECAY 0.999", {"EMA_DECAY": 0.999}),
+                ("adafactor", {"OPTIMIZER": "adafactor", "EMA_DECAY": 0}),
+                ("OPT_MU_DTYPE bfloat16", {"OPTIMIZER": "adam", "OPT_MU_DTYPE": "bfloat16"}))}
+        del ex, batches
+        gc_cuda()
+    out["grad_accum"] = accum_check(phase, paths, root)
+    return out
+
+
+def vit_cache_phase(root, encode_step) -> dict:
+    """Phase 22: VIT_CACHE. LaTr-base eval (bf16) over 64 questions on 16
+    images (4 an image): each unique image encoded once (12 launches a chunk
+    of 32), then 12 attention launches a batch (the T5 encoder) against 24
+    uncached; answers identical to the uncached run's; ms of the pass. Then
+    the serving encoding cache in the gathered engine: a second pass hits
+    every image, answers equal an uncached engine's, a reload flushes the
+    table and bumps its generation."""
+    phase = "phase 22"
+    paths = synthetic.make_latr_fixture(os.path.join(root, "vit_cache"), n_images=16, n_rows=64,
+                                        image_hw=FULL["vit_image_size"])
+    n_t5 = T5_BASE["num_encoder_layers"]
+    cfg = latr_train_config(paths, os.path.join(root, "vit_cache_ckpts"),
+                            qa_val_path=paths["train"], VIT_CACHE_BATCH=BATCH)
+    out = {}
+    answers = {}
+    for cache in (False, True):
+        ex = EXECUTORS.get(cfg.EXECUTOR)(Config({**cfg, "VIT_CACHE": cache}), "eval",
+                                         device=DEVICE)
+        ex._ensure_params()
+        ex.infer(ex.val_data, BATCH, MAX_ANSWER)  # warm-up
+        reset_launches()
+        t0 = time.perf_counter()
+        ex._maybe_attach_vit_cache(("val_data",))
+        torch.cuda.synchronize()
+        attach = launches()
+        attach_s = time.perf_counter() - t0
+        reset_launches()
+        t0 = time.perf_counter()
+        answers[cache] = ex.infer(ex.val_data, BATCH, MAX_ANSWER)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        n_batches = len(answers[cache]) // BATCH
+        per_batch = {k: v // n_batches for k, v in launches().items()}
+        want = {"flash_attention": n_t5 if cache else encode_step["flash_attention"],
+                "sal_fused_attention": 0}
+        check_launches(f"{phase} cache {cache}", per_batch, want)
+        out["cached" if cache else "uncached"] = {
+            "eval_ms": ms, "launches_per_batch": per_batch, "attach_launches": attach,
+            "attach_s": attach_s, "rows": len(answers[cache])}
+        del ex
+        gc_cuda()
+    if answers[True] != answers[False]:
+        raise AssertionError(f"{phase}: cached answers differ from the uncached run's")
+    log(f"{phase}: LaTr-base eval over 64 questions on 16 images: answers identical cached and "
+        f"uncached; {json.dumps(out)}")
+
+    reqs = [(float(i % 16), synthetic.QUESTIONS[i % len(synthetic.QUESTIONS)])
+            for i in range(64)]
+    served = {}
+    for cache in (False, True):
+        ex = serve_executor(Config({**cfg, "VIT_CACHE": cache}))
+        with ServingEngine(ex, *ex.serve_frames, batch_size=BATCH, max_wait_ms=20,
+                           max_answer_length=MAX_ANSWER) as engine:
+            reset_launches()
+            first = answer_all(engine, reqs)
+            torch.cuda.synchronize()
+            first_launches = launches()
+            reset_launches()
+            t0 = time.perf_counter()
+            second = answer_all(engine, reqs)
+            torch.cuda.synchronize()
+            second_ms = 1e3 * (time.perf_counter() - t0)
+            second_launches = launches()
+            stats = engine.stats()
+            if cache:
+                ex.ckpt.save("best", {"params": ex.state.params, "best_score": 0.0})
+                gen = engine._enc_cache.generation
+                engine.reload("best")
+                flushed = engine.stats()["vit_cache"]
+                if engine._enc_cache.generation != gen + 1 or flushed["entries"]:
+                    raise AssertionError(f"{phase}: reload left {flushed} (generation "
+                                         f"{engine._enc_cache.generation}, was {gen})")
+                third = answer_all(engine, reqs)
+                if third != first:
+                    raise AssertionError(f"{phase}: answers after the reload differ")
+        served[cache] = {"answers": first, "second": second, "second_ms": second_ms,
+                         "first_launches": first_launches, "second_launches": second_launches,
+                         "vit_cache": stats.get("vit_cache")}
+        del ex, engine
+        gc_cuda()
+    if not (served[True]["answers"] == served[True]["second"] == served[False]["answers"]):
+        raise AssertionError(f"{phase}: the encoding cache's answers differ")
+    vc = served[True]["vit_cache"]
+    if vc["hits"] < len(reqs) or vc["entries"] != 16:
+        raise AssertionError(f"{phase}: encoding cache stats {vc}")
+    for cache in served.values():
+        del cache["answers"], cache["second"]
+    out["serving"] = {str(k): v for k, v in served.items()}
+    log(f"{phase}: serving encoding cache: answers equal the uncached engine's, a repeat pass "
+        f"hits every image ({vc}), launches of the repeat pass "
+        f"{served[True]['second_launches']} against {served[False]['second_launches']}, "
+        f"{served[True]['second_ms']:.0f} ms against {served[False]['second_ms']:.0f}; a reload "
+        f"flushed the table and bumped its generation")
+    return out
+
+
 def bf16_spills(logs: dict) -> list:
     """[kernel, entry, report] for every bf16 entry (attention_tma_kernel)
     whose -Xptxas -v report shows spill stores or loads."""
@@ -2958,6 +3642,16 @@ def main() -> None:
         engines["faults"] = fault_phase(paths, root)
         engines["cli"] = cli_phase(paths, root)
 
+        # phases 18-22: fine-tuning from pretrained weights
+        finetune = {
+            "import": import_phase(root, encode_step, {
+                "flash_attention": 2 * encode_launches + 2 * n_dec, "sal_fused_attention": 0}),
+            "converter": converter_phase(psal_paths, root),
+            "lora": lora_phase(paths, root, encode_step, trained),
+            "remat": remat_phase(paths, psal_paths, root, encode_step,
+                                 {"flash_attention": 2 * n_dec, "sal_fused_attention": n_t5}),
+            "vit_cache": vit_cache_phase(root, encode_step)}
+
     per_batch = lambda key: 12 * shapes[0][key] + 12 * shapes[1][key]
     per_step = lambda key: 12 * sum(r[key] for r in train_shapes)
     # a PhonemeLaTr (or CustomizedLaTr, CustomizedPreSTU, PhonemePreSTU) step:
@@ -3048,6 +3742,16 @@ def main() -> None:
         "launches_per_batch_pool_phoneme_latr": encode_step["flash_attention"],
         "launches_per_batch_sampling_latr":
             variants["sampling"]["launches_per_batch"]["flash_attention"],
+        # fine-tuning (phases 18-22): counted on each path
+        "launches_serving_imported_latr":
+            finetune["import"]["bfloat16"]["served"]["launches"]["flash_attention"],
+        "launches_per_train_step_lora": finetune["lora"]["launches_per_step"]["flash_attention"],
+        "launches_per_train_step_remat_latr":
+            finetune["remat"]["latr"]["launches_on"]["flash_attention"],
+        "launches_per_train_step_remat_sal":
+            finetune["remat"]["sal"]["launches_on"]["flash_attention"],
+        "launches_per_eval_batch_vit_cache":
+            finetune["vit_cache"]["cached"]["launches_per_batch"]["flash_attention"],
     }, {
         "name": "sal_fused_attention",
         "route": "cuda",
@@ -3080,6 +3784,9 @@ def main() -> None:
         "max_grad_err_bf16": grads["sal_max_grad_err"],
         "launches_per_batch_beam_phoneme_sal":
             variants["beam"]["phoneme_sal"]["launches_per_batch"]["sal_fused_attention"],
+        "launches_per_batch_converted_phoneme_sal": T5_BASE["num_encoder_layers"],
+        "launches_per_train_step_remat_sal":
+            finetune["remat"]["sal"]["launches_on"]["sal_fused_attention"],
     }]
     log(json.dumps({"serving": {"latr": served, "sal": sal_served, "phoneme_sal": psal_served,
                                 "phoneme_latr": platr_served, "prestu": prestu_served},
@@ -3090,7 +3797,8 @@ def main() -> None:
                               "sal": sal_steps, "phoneme_latr": platr_trained,
                               "phoneme_latr_f32_step": platr_f32, "steps_9c": steps_9c,
                               "prestu_f32_step": prestu_f32},
-                    "decode_variants": variants, "serving_engines": engines, "card": card}))
+                    "decode_variants": variants, "serving_engines": engines,
+                    "finetune": finetune, "card": card}))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card_line())

@@ -105,3 +105,24 @@ def load_flax_params(model: nn.Module, params) -> nn.Module:
     """Copy a flax param tree into ``model`` (cast to each parameter's dtype)."""
     model.load_state_dict(flax_to_state_dict(params, model), strict=True)
     return model
+
+
+def flax_lora_to_adapters(lora_tree) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A JAX LoRA adapter tree (``.../m/kernel: {"a", "b"}``, either block
+    layout) as the port's adapters (``train/lora.py``): keyed by the adapted
+    Linear weight's name, ``a`` (in, r) and ``b`` (r, out) in f32, the same
+    orientation on both sides."""
+    out = {}
+
+    def walk(node, path):
+        if isinstance(node, dict) and set(node) == {"a", "b"}:
+            if path[-1] != "kernel":
+                raise KeyError(f"adapter at {'/'.join(path)} does not adapt a kernel")
+            out[".".join(path[:-1] + ("weight",))] = {
+                k: torch.tensor(np.asarray(node[k], np.float32)) for k in ("a", "b")}
+            return
+        for k, v in node.items():
+            walk(v, path + (k,))
+
+    walk(unstack_block_params(lora_tree), ())
+    return out

@@ -60,6 +60,7 @@ def t5_config_from_yaml(config) -> T5Config:
         tie_word_embeddings=config.get("tie_word_embeddings", True),
         dropout_rate=config.get("dropout_rate", 0.1),
         dtype=_dtype_of(config),
+        remat=bool(config.get("REMAT", False)),
     )
 
 
@@ -99,8 +100,11 @@ BATCH_KEYS = (
 
 
 def to_device_batch(batch: Dict[str, np.ndarray], device, keys=BATCH_KEYS):
-    """numpy batch -> tensors on ``device`` (the model's inputs only)."""
-    return {k: torch.from_numpy(np.asarray(batch[k])).to(device) for k in keys if k in batch}
+    """numpy batch -> tensors on ``device`` (the model's inputs only; a
+    field that is a tensor already, such as cached ViT encodings, moves as
+    it is)."""
+    return {k: (v if isinstance(v, torch.Tensor) else torch.from_numpy(np.asarray(v))).to(device)
+            for k in keys if k in batch for v in (batch[k],)}
 
 
 class FusionModel(nn.Module):

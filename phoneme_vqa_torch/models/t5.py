@@ -35,6 +35,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import NEG_INF, dot_product_attention
 from ..ops.layout import kernel_operand
@@ -62,6 +63,9 @@ class T5Config:
     eos_token_id: int = 1
     decoder_start_token_id: int = 0
     dtype: torch.dtype = torch.bfloat16
+    # REMAT: each encoder and decoder block's activations are recomputed in
+    # the backward (``remat_block``), in training with gradients only
+    remat: bool = False
 
 
 def _linear(d_in: int, d_out: int, cfg: T5Config, device) -> nn.Linear:
@@ -70,23 +74,54 @@ def _linear(d_in: int, d_out: int, cfg: T5Config, device) -> nn.Linear:
 
 class DropoutRNG:
     """The random stream of one model's dropout sites: a ``torch.Generator``
-    on the inputs' device, seeded from ``(seed, step)``. The trainer reseeds
-    it before every step, as the JAX executor folds the step into its
-    dropout key (``jax.random.fold_in(base_rng, state.step)``); the two
+    on the inputs' device, seeded from ``(seed, step)``, or ``(seed, step,
+    micro)`` for a microbatch of an accumulated step. The trainer reseeds it
+    before every step, as the JAX executor folds the step (and the
+    microbatch) into its dropout key (``jax.random.fold_in``); the two
     frameworks draw different bits from the same seed."""
 
     def __init__(self, seed: int = 0, step: int = 0):
         self.reseed(seed, step)
 
-    def reseed(self, seed: int, step: int) -> None:
-        self.seed, self.step = int(seed), int(step)
+    def reseed(self, seed: int, step: int, micro: Optional[int] = None) -> None:
+        self.seed, self.step, self.micro = int(seed), int(step), micro
         self._generator = None
 
     def generator(self, device: torch.device) -> torch.Generator:
         if self._generator is None or self._generator.device != device:
-            mixed = np.random.SeedSequence([self.seed, self.step]).generate_state(1, np.uint64)[0]
+            entropy = [self.seed, self.step] + ([] if self.micro is None else [int(self.micro)])
+            mixed = np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0]
             self._generator = torch.Generator(device=device).manual_seed(int(mixed))
         return self._generator
+
+
+def remat_block(block: nn.Module, rng: DropoutRNG, *args):
+    """``block(*args)`` under ``torch.utils.checkpoint`` (``REMAT``, the JAX
+    package's ``nn.remat`` per T5 block): the block's activations are freed
+    after the forward and recomputed in the backward. The dropout masks come
+    from ``rng``'s generator, which ``checkpoint``'s ``preserve_rng_state``
+    does not cover (it restores the default generators only), so the
+    generator's state at the block's forward is kept and set again around
+    the recompute: the recompute draws the forward's masks."""
+    x = args[0]
+    if not any(m.rate and m.training for m in block.modules() if isinstance(m, Dropout)):
+        return checkpoint(block, *args, use_reentrant=False, preserve_rng_state=False)
+    gen = rng.generator(x.device)
+    at_forward = gen.get_state()
+    calls = [0]
+
+    def run(*a):
+        calls[0] += 1
+        if calls[0] == 1:  # the forward: draws advance the stream as usual
+            return block(*a)
+        after = gen.get_state()
+        gen.set_state(at_forward)
+        try:
+            return block(*a)
+        finally:
+            gen.set_state(after)
+
+    return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 class Dropout(nn.Module):
@@ -318,7 +353,7 @@ class T5Encoder(nn.Module):
                  rng: Optional[DropoutRNG] = None):
         super().__init__()
         self.cfg = cfg
-        rng = rng or DropoutRNG()
+        self.rng = rng = rng or DropoutRNG()
         self.rel_bias = RelativeBias(cfg, bidirectional=True, device=device) if rel_bias else None
         self.blocks = _add_blocks(self, lambda: T5EncoderBlock(cfg, device, rng), cfg.num_layers)
         self.final_ln = RMSNorm(cfg.d_model, cfg.layer_norm_epsilon, cfg.dtype, device)
@@ -335,8 +370,9 @@ class T5Encoder(nn.Module):
             raise ValueError("T5Encoder built without rel_bias needs a position_bias")
         key_mask = None if attention_mask is None else attention_mask.bool()
         x = inputs_embeds.to(self.cfg.dtype)
+        remat = self.cfg.remat and self.training and torch.is_grad_enabled()
         for block in self.blocks:
-            x = block(x, key_mask, bias)
+            x = remat_block(block, self.rng, x, key_mask, bias) if remat else block(x, key_mask, bias)
         return self.final_ln(x)
 
 
@@ -377,7 +413,7 @@ class T5Decoder(nn.Module):
     def __init__(self, cfg: T5Config, device=None, rng: Optional[DropoutRNG] = None):
         super().__init__()
         self.cfg = cfg
-        rng = rng or DropoutRNG()
+        self.rng = rng = rng or DropoutRNG()
         self.rel_bias = RelativeBias(cfg, bidirectional=False, device=device)
         self.blocks = _add_blocks(
             self, lambda: T5DecoderBlock(cfg, device, rng), cfg.num_decoder_layers
@@ -390,8 +426,10 @@ class T5Decoder(nn.Module):
         enc_mask = None if enc_mask is None else enc_mask.bool()
         dec_mask = None if dec_mask is None else dec_mask.bool()
         x = dec_embeds.to(self.cfg.dtype)
+        remat = self.cfg.remat and self.training and torch.is_grad_enabled()
         for block in self.blocks:
-            x = block(x, enc_out, enc_mask, dec_mask, bias)
+            args = (x, enc_out, enc_mask, dec_mask, bias)
+            x = remat_block(block, self.rng, *args) if remat else block(*args)
         return self.final_ln(x)
 
     # -- incremental decode --------------------------------------------------

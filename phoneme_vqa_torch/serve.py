@@ -17,7 +17,8 @@ accepting, drains the requests in flight and exits 0.
 Usage:
     python -m phoneme_vqa_torch.serve --config-file F [--ckpt best|last|none]
         [--device cuda|cpu] [--batch-size N] [--buckets 1,4|auto] [--continuous]
-        [--horizon H] [--prefill-chunk C] [--spec K] [--aot DIR] [--prime] ...
+        [--horizon H] [--prefill-chunk C] [--spec K] [--adapter NAME=CKPT_DIR]
+        [--aot DIR] [--prime] ...
 
 The device is ``--device`` (default: the card), never the preset's
 ``DEVICE``. A preset is YAML or, where PyYAML is missing, JSON.
@@ -35,6 +36,8 @@ from . import train  # noqa: F401  (registers the executors)
 from .config import get_config
 from .ops import _build
 from .serving import ContinuousEngine, ServingEngine, aot
+from .train import lora as lora_mod
+from .train.checkpoint import CheckpointManager
 from .utils.logger import get_logger
 from .utils.registry import EXECUTORS
 
@@ -75,7 +78,10 @@ def parse_args(argv=None):
     p.add_argument("--deadline-s", type=float, default=0, metavar="SECONDS",
                    help=">0 expires requests still queued after this many seconds")
     p.add_argument("--adapter", action="append", default=[], metavar="NAME=CKPT_DIR",
-                   help="LoRA adapters: not ported yet (ROADMAP A12)")
+                   help="serve a LoRA adapter from a composite checkpoint (a LORA_RANK "
+                        "training run's SAVE_PATH; best_ckp, else last_ckp) under NAME; "
+                        'requests select it with an "adapter" field. One base model, many '
+                        "fine-tunes. Repeatable; not with --continuous")
     p.add_argument("--confidence", action="store_true",
                    help="include a confidence field (geometric-mean emitted-token "
                         "probability) in every answer")
@@ -127,9 +133,21 @@ def make_access_log(path: str):
     return access_log
 
 
+def load_adapter(ckpt_dir: str, device=None) -> dict:
+    """``{"lora", "scale"}`` from a composite LoRA checkpoint directory
+    (best_ckp preferred, then last_ckp)."""
+    ckpt = CheckpointManager(ckpt_dir)
+    name = "best" if ckpt.exists("best") else "last"
+    raw = ckpt.restore(name, device)
+    if not lora_mod.is_composite(raw["params"]):
+        raise SystemExit(f"{ckpt_dir}/{name}_ckp is not a LoRA composite checkpoint (train it "
+                         "with LORA_RANK to produce adapters)")
+    return {"lora": raw["params"]["lora"], "scale": float(raw.get("lora_scale", 1.0))}
+
+
 def build_engine(args):
-    if args.adapter:
-        raise NotImplementedError("--adapter: LoRA adapters are not ported yet (ROADMAP A12)")
+    if args.adapter and args.continuous:
+        raise SystemExit("--continuous does not support --adapter")
     config = get_config(args.config_file)
     # serve mode: tokenizers + feature stores + model only; no QA CSV read
     ex = EXECUTORS.get(config.EXECUTOR)(config, mode="serve", device=args.device)
@@ -143,6 +161,13 @@ def build_engine(args):
         ex._load_trained_checkpoint(args.ckpt)
     ocr_store, obj_store = ex.serve_frames
     max_len = args.max_length or int(config.get("max_predict_length", 20))
+    adapters = {}
+    for spec in args.adapter:
+        name, _, path = spec.partition("=")
+        if not name or not path:
+            raise SystemExit(f"--adapter expects NAME=CKPT_DIR, got {spec!r}")
+        adapters[name] = load_adapter(path, ex.device)
+        log.info(f"## adapter {name!r} loaded from {path}")
     access_log = make_access_log(args.access_log) if args.access_log else None
     if args.access_log:
         log.info(f"## access log -> {args.access_log}")
@@ -162,7 +187,8 @@ def build_engine(args):
             max_wait_ms=args.max_wait_ms, max_answer_length=max_len,
             max_queue=args.max_queue, cache_size=args.cache_size,
             confidence=args.confidence, default_deadline_s=args.deadline_s,
-            buckets=parse_buckets(args.buckets, args.batch_size), access_log=access_log)
+            adapters=adapters or None, buckets=parse_buckets(args.buckets, args.batch_size),
+            access_log=access_log)
     # (re)pack when the store does not hold every kernel built now
     if aot_dir and not set(aot.built()) <= set(loaded):
         aot.pack(aot_dir)

@@ -55,6 +55,7 @@ from .engine import (
     prometheus_text,
     store_key_type,
 )
+from .encoding_cache import EncodingCache
 from .graphs import capture, check_params_in_place, param_addresses
 from .watchdog import StallWatchdog, fail_future
 
@@ -193,6 +194,9 @@ class ContinuousEngine:
                 log.warning(f"(!) continuous spec_k={spec_k} ignored: {why}")
                 self.spec_k = 0
 
+        # the ViT encoding table (VIT_CACHE), built before warmup so every
+        # prefill takes the vit_encodings input
+        self._enc_cache = EncodingCache.maybe_build(executor)
         self._stream = DeviceStream(engine_device(executor))
         self._graph = None
         self._graph_pool = None
@@ -228,7 +232,10 @@ class ContinuousEngine:
         return _Request(next(iter(self._known_ids)), "")
 
     def _featurize(self, reqs):
-        return featurize_requests(self.executor, self.ocr_store, self.obj_store, reqs)
+        ds = featurize_requests(self.executor, self.ocr_store, self.obj_store, reqs)
+        if self._enc_cache is not None:
+            self._enc_cache.apply(ds, [r.image_id for r in reqs])
+        return ds
 
     def _chunk_batch(self, reqs) -> dict:
         """Featurize reqs (<= C) into a device batch padded to exactly C rows."""
@@ -523,6 +530,7 @@ class ContinuousEngine:
                 "queue_depth": self._queue.qsize(),
                 "p50_ms": pct(0.50),
                 "p95_ms": pct(0.95),
+                **({"vit_cache": self._enc_cache.stats()} if self._enc_cache is not None else {}),
             }
 
     def prometheus_metrics(self) -> str:
@@ -566,6 +574,8 @@ class ContinuousEngine:
             self.executor._load_trained_checkpoint(loadtype)
             self._stream.synchronize()
             check_params_in_place(self.executor.model, self._param_addresses)
+            if self._enc_cache is not None:
+                self._enc_cache.flush()  # stale under the new ViT weights
             cache, full_bias, enc_mask, src = self._prefill(
                 self._chunk_batch([self._dummy_request()]))
             if full_bias is not None:

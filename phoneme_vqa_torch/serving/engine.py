@@ -21,7 +21,14 @@ Works with any executor family (LaTr / PreSTU / SaL x stock / customized /
 phoneme): the engine uses ``executor._make_dataset``, ``infer_async`` (or
 ``infer``) and, for the graphs, ``executor.model``. Feature stores are the
 port's dicts keyed by image id (``data/adapters.py``), not frames.
-LoRA adapters and the ViT encoding cache are ROADMAP A12 and raise.
+
+* **Adapters.** Several LoRA fine-tunes served off one base model: a
+  request names its adapter, requests are grouped by adapter, and a switch
+  writes the merged weights into the parameters' own storage (the graphs
+  read them in place) after the batches in flight have drained. The base
+  is restored from a kept copy of the adapted leaves, never by subtraction.
+* **ViT encoding cache** (``VIT_CACHE``, ``serving/encoding_cache.py``):
+  an image seen before skips the ViT.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ import torch
 
 from ..data.loader import batch_iterator
 from ..utils.logger import get_logger
+from .encoding_cache import EncodingCache
 from .graphs import GraphDecoder, check_params_in_place, param_addresses
 from .watchdog import StallWatchdog, fail_future
 
@@ -201,7 +209,15 @@ class ServingEngine:
         EXPIRED before featurization (TimeoutError); so is one whose
         remaining time is under the measured service time (an EWMA of
         claim -> resolve). ``deadline_s`` on :meth:`submit` overrides.
-    adapters: LoRA adapters (JAX multi-adapter serving): ROADMAP A12, raises.
+    adapters: ``{name: {"lora": adapters, "scale": float}}`` (``train/lora.py``
+        adapters, e.g. from ``serve.load_adapter``): several LoRA fine-tunes
+        served off one base model. A request naming an adapter decodes with
+        ``base + scale * (A @ B)^T``; requests are grouped by adapter within
+        each gathered batch, and a switch waits for the batches in flight,
+        then writes the merged weights into the parameters in place (the
+        base is kept as an f32 copy of the adapted leaves, and restored from
+        it bit for bit). Adapters are checked against the base at
+        construction (another family's fails fast).
     buckets: ascending decode batch shapes (e.g. ``[1, 4]``) warmed up
         beside ``batch_size``; each gathered batch decodes at the smallest
         bucket that fits. Default: ``[batch_size]``.
@@ -233,8 +249,6 @@ class ServingEngine:
         access_log=None,
         stall_timeout_s: float = 300.0,
     ):
-        if adapters:
-            raise NotImplementedError("LoRA adapters in serving are not ported yet (ROADMAP A12)")
         self.executor = executor
         self.ocr_store = ocr_store
         self.obj_store = obj_store
@@ -292,6 +306,28 @@ class ServingEngine:
         self._cache: dict = {}  # (image_id, question, adapter) -> answer
         self._bucket_batches: dict = {}  # decode batch shape -> count
         self._access_log = access_log
+        self._adapters = dict(adapters or {})
+        self._active_adapter = None
+        self._adapter_switches = 0
+        self._switch_ms: list = []
+        self._base_copies: dict = {}  # adapted weight name -> f32 base
+        if self._adapters:
+            # here, not at import: the executors import this module
+            from ..train import lora as lora_mod
+
+            self._lora = lora_mod
+            executor._ensure_params()
+            named = dict(executor.model.named_parameters())
+            for name, spec in self._adapters.items():
+                bad = self._lora.unmatched_adapter_paths(named, spec["lora"])
+                if bad:
+                    raise ValueError(f"adapter {name!r} does not match the served base model: "
+                                     f"{len(bad)} unmatched kernel(s), e.g. {bad[:3]}: wrong "
+                                     "family?")
+            self._capture_base()
+        # built before warmup: with the cache on, every batch's encode takes
+        # the vit_encodings input
+        self._enc_cache = EncodingCache.maybe_build(executor, self._adapters)
         self._stream = DeviceStream(engine_device(executor))
         self._graphs = decodes_with_graphs(executor)
         self._decoders: dict = {}  # bucket -> GraphDecoder
@@ -366,9 +402,9 @@ class ServingEngine:
         ``{"answer", "confidence"}`` dict in confidence mode). ``deadline_s``
         (or the engine's ``default_deadline_s``) expires the request with
         TimeoutError if it is still queued that many seconds from now."""
-        if adapter is not None:
-            raise KeyError(f"unknown adapter {adapter!r} (serving base only: adapters are "
-                           "ROADMAP A12)")
+        if adapter is not None and adapter not in self._adapters:
+            raise KeyError(f"unknown adapter {adapter!r} (serving "
+                           f"{sorted(self._adapters) or 'base only'})")
         with self._lock:  # uniform admission: a stopped engine rejects
             if self._unhealthy is not None:  # everything, cache included
                 raise RuntimeError(f"engine unhealthy: {self._unhealthy}")
@@ -428,11 +464,13 @@ class ServingEngine:
                 "reloads": self._reloads,
                 "expired": self._expired,
                 "service_ewma_s": round(self._service_ewma, 3),
-                "adapter_switches": 0,
+                "adapter_switches": self._adapter_switches,
                 "bucket_batches": {str(k): v for k, v in sorted(self._bucket_batches.items())},
                 "queue_depth": self._queue.qsize(),
                 "p50_ms": pct(0.50),
                 "p95_ms": pct(0.95),
+                **({"adapter_switch_ms": list(self._switch_ms[-100:])} if self._adapters else {}),
+                **({"vit_cache": self._enc_cache.stats()} if self._enc_cache is not None else {}),
             }
 
     def prometheus_metrics(self) -> str:
@@ -463,6 +501,11 @@ class ServingEngine:
                     self._stream.synchronize()
                     if self._param_addresses is not None:
                         check_params_in_place(self.executor.model, self._param_addresses)
+                    if self._adapters:  # the new weights are the base; adapters
+                        self._capture_base()  # re-merge at their next batch
+                        self._active_adapter = None
+                    if self._enc_cache is not None:  # the ViT may have changed
+                        self._enc_cache.flush()
                 finally:
                     self._reload_waiting = False
                     self._weights_cv.notify_all()
@@ -544,6 +587,53 @@ class ServingEngine:
     def __exit__(self, *exc):
         self.stop()
 
+    # -- adapters ---------------------------------------------------------------
+
+    def _capture_base(self) -> None:
+        """An f32 copy of the base of every leaf an adapter targets: the
+        executor's f32 masters (a bf16 weight's own values are their
+        rounding)."""
+        masters = self.executor.state.params
+        names = {n for spec in self._adapters.values() for n in spec["lora"]}
+        self._base_copies = {n: masters[n].detach().float().clone() for n in names}
+
+    @torch.no_grad()
+    def _activate(self, adapter) -> None:
+        """Put ``adapter``'s weights (None: the base) into the parameters'
+        storage, unless they are there already. Runs on the dispatcher under
+        the swap lock (reload takes it too), after the batches in flight have
+        decoded: their graphs read these parameters in place. The merge has
+        the rounding of the JAX package's ``merge_lora`` (f32 base + scale *
+        f32 product), then the parameter's dtype: what a merged checkpoint
+        served with no adapter holds. The base comes back from its f32 copy,
+        bit for bit."""
+        if not self._adapters:
+            return
+        with self._swap_lock:
+            if adapter == self._active_adapter:
+                return
+            with self._weights_cv:
+                while self._batches_in_flight:
+                    if self._unhealthy is not None:
+                        raise RuntimeError(f"engine unhealthy: {self._unhealthy}")
+                    self._weights_cv.wait(timeout=0.5)
+            t0 = time.perf_counter()  # the switch itself, after the drain
+            with self._stream.scope():
+                spec = self._adapters.get(adapter)
+                for name, base in self._base_copies.items():
+                    p = self.executor.model.get_parameter(name)
+                    if spec is not None and name in spec["lora"]:
+                        p.copy_(self._lora.merged_weight(base, spec["lora"][name],
+                                                         spec["scale"]))
+                    else:
+                        p.copy_(base)
+            self._stream.synchronize()
+            self._active_adapter = adapter
+            ms = (time.perf_counter() - t0) * 1e3
+        with self._stats_lock:
+            self._adapter_switches += 1
+            self._switch_ms.append(ms)
+
     # -- worker ---------------------------------------------------------------
 
     def _collect(self) -> List[_Request]:
@@ -567,7 +657,11 @@ class ServingEngine:
         return batch
 
     def _featurize(self, reqs: List[_Request]):
-        return featurize_requests(self.executor, self.ocr_store, self.obj_store, reqs)
+        ds = featurize_requests(self.executor, self.ocr_store, self.obj_store, reqs)
+        if self._enc_cache is not None:
+            with self._stream.scope():
+                self._enc_cache.apply(ds, [r.image_id for r in reqs])
+        return ds
 
     def _decoder(self, dataset, bucket: int) -> GraphDecoder:
         """The bucket's graph decoder, built at its first batch (on the card:
@@ -642,13 +736,43 @@ class ServingEngine:
                     self._expired += len(expired)
             if not reqs:
                 continue
+            # adapters: one decode per adapter group (FIFO within a group),
+            # each handed off on its own, since a switch rewrites the weights
+            # the in-flight graphs read
+            groups = [reqs]
+            if self._adapters:
+                by_adapter: dict = {}
+                for r in reqs:
+                    by_adapter.setdefault(r.adapter, []).append(r)
+                groups = list(by_adapter.values())
+            for group in groups:
+                self._dispatch_group(group)
+
+    def _dispatch_group(self, reqs: List[_Request]) -> None:
+        """Featurize and dispatch one batch of requests that share an
+        adapter, then hand it to the resolver."""
+        work = []
+        while True:
+            try:
+                self._activate(reqs[0].adapter)
+            except Exception as e:  # the resolver reports it per request
+                work.append((reqs, None, None, e))
             with self._weights_cv:  # hold new batches while a reload waits
                 while self._reload_waiting:
                     self._weights_cv.wait()
-                self._batches_in_flight += 1
-            work = []
+                # a reload that landed since the switch put the base back
+                if work or self._active_adapter == reqs[0].adapter or not self._adapters:
+                    self._batches_in_flight += 1
+                    break
+        if not work:
             try:
+                gen = self._enc_cache.generation if self._enc_cache is not None else None
                 ds = self._featurize(reqs)
+                # a reload between featurize and dispatch flushed the table:
+                # featurize again under the new weights
+                while self._enc_cache is not None and self._enc_cache.generation != gen:
+                    gen = self._enc_cache.generation
+                    ds = self._featurize(reqs)
                 if len(ds) != len(reqs):
                     raise RuntimeError(f"featurization dropped rows: {len(ds)} != {len(reqs)}")
                 # the smallest bucket that fits: a lone request rides the
@@ -659,8 +783,8 @@ class ServingEngine:
                 work.append((reqs, bucket, resolve, None))
             except Exception as e:  # the resolver reports it per request
                 work.append((reqs, None, None, e))
-            # bounded handoff (depth 2): blocks when the resolver is behind
-            self._inflight.put((reqs, work))
+        # bounded handoff (depth 2): blocks when the resolver is behind
+        self._inflight.put((reqs, work))
 
     def _resolve_loop(self):
         self._stream.enter()

@@ -30,6 +30,14 @@ them. The port runs on the device the caller names (never the config's
 ``DEVICE``), on one device. ``SAL_FUSED`` sets the SaL kernel's dispatch
 (``ops.attention.enable_sal_fused``), as in the JAX package. Every JAX knob
 the port does not have yet raises when it is set (:func:`check_unported`).
+
+Fine-tuning knobs, as the JAX executor has them: ``LORA_RANK`` (adapters
+trained over a frozen base, ``train/lora.py``), ``EMA_DECAY`` (an average
+that eval prefers, ``EVAL_EMA``), ``GRAD_ACCUM_STEPS`` (microbatches, one
+update), ``REMAT`` (each T5 block recomputed in the backward,
+``models/t5.py: remat_block``), ``SAVE_EVERY_STEPS`` (mid-epoch ``last_ckp``,
+resumed at the next batch), ``VIT_CACHE`` (``data/vit_cache.py``) and a
+params-only resume of a converted or optimizer-mismatched checkpoint.
 """
 
 from __future__ import annotations
@@ -43,11 +51,13 @@ import pickle
 import time
 from typing import Dict, List
 
+import numpy as np
 import torch
 
 from .. import evaluation
 from ..config import Config
 from ..data.loader import batch_iterator, num_batches
+from ..data.vit_cache import attach_vit_cache
 from ..decode.pool import CACHE_KEYS, pool_greedy_decode
 from ..decode.sample import sample_generator
 from ..models.generate import (
@@ -63,7 +73,16 @@ from ..utils.device import resolve_device
 from ..utils.logger import get_logger
 from ..utils.registry import MODELS
 from .optim import cross_entropy_loss
-from .state import bind_params, compute_copies, master_grads, refresh_compute_weights_
+from . import lora as lora_mod
+from .state import (
+    bind_params,
+    compute_copies,
+    ema_update_,
+    master_grads,
+    refresh_compute_weights_,
+    tree_map,
+    tree_shapes,
+)
 
 log = get_logger(__name__)
 
@@ -80,20 +99,14 @@ def _mesh_devices(mesh) -> int:
     return n
 
 
-# (key, is it set?, ROADMAP item): JAX knobs the port does not have yet
+# (key, is it set?, ROADMAP item): JAX knobs the port does not have
 UNPORTED = (
-    ("LORA_RANK", lambda v: bool(v), "A12"),
-    ("EMA_DECAY", lambda v: bool(v), "A12"),
-    ("GRAD_ACCUM_STEPS", lambda v: int(v or 1) > 1, "A12"),
-    ("SCAN_LAYERS", lambda v: bool(v), "A12"),
-    ("REMAT", lambda v: bool(v), "A12"),
-    ("VIT_CACHE", lambda v: bool(v), "A12"),
+    ("SCAN_LAYERS", lambda v: bool(v),
+     "A12: refused, an XLA compile means; models/bridge.py reads stacked trees"),
     ("FEATURE_CACHE", lambda v: bool(v), "A12"),
-    ("SAVE_EVERY_STEPS", lambda v: bool(v), "A12"),
     ("PROFILE_DIR", lambda v: bool(v), "A12"),
     ("DEBUG_NANS", lambda v: bool(v), "A12"),
     ("NUMWORKERS", lambda v: bool(v), "A12"),
-    ("pretrained_weights_path", lambda v: bool(v), "A13"),
     ("MESH", lambda v: _mesh_devices(v) > 1, "A15"),
     ("FLASH", lambda v: v is not None, "B1: the port always runs its kernel on the card"),
 )
@@ -183,6 +196,7 @@ class BaseExecutor:
     def train(self):
         os.makedirs(self.config.SAVE_PATH or "./models", exist_ok=True)
         log.info("#----------- START TRAINING -----------------#")
+        self._maybe_attach_vit_cache(("train_data", "val_data"))
         t_start = time.perf_counter()
         start_epoch = int(self.state.epoch)
         # EARLY_STOP_PATIENCE: stop after N epochs without an Accuracy
@@ -233,6 +247,7 @@ class BaseExecutor:
     def evaluate(self):
         log.info("###Evaluate Mode###")
         self._load_trained_checkpoint(self.evaltype)
+        self._maybe_attach_vit_cache(("val_data",))
         scores = self._evaluate_metrics()
         log.info("\t#EVALUATION:\n")
         log.info(scores)
@@ -241,6 +256,7 @@ class BaseExecutor:
     def predict(self):
         log.info("###Predict Mode###")
         self._load_trained_checkpoint(self.predicttype)
+        self._maybe_attach_vit_cache(("predict_data",))
         log.info("## START PREDICTING ... ")
         if self.config.get_predict_score:
             results, scores = self._evaluate_metrics(return_results=True)
@@ -308,15 +324,32 @@ class BaseExecutor:
 
     # -- checkpointing -----------------------------------------------------------
 
+    def _ckpt_params(self):
+        """The checkpoint's params tree: the masters, or ``{"base",
+        "lora"}`` under LoRA."""
+        if self.state.lora is not None:
+            return {"base": self.state.params, "lora": self.state.lora}
+        return self.state.params
+
     def _ckpt_tree(self) -> dict:
-        return {
-            "params": self.state.params,
+        tree = {
+            "params": self._ckpt_params(),
             "opt_state": self.state.opt_state,
             "step": int(self.state.step),
             "epoch": int(self.state.epoch),
-            "step_in_epoch": 0,  # no mid-epoch saves (SAVE_EVERY_STEPS, ROADMAP A12)
+            # 0 at epoch boundaries; > 0 for a SAVE_EVERY_STEPS mid-epoch
+            # checkpoint: resume continues the epoch from the next batch (the
+            # shuffle is seeded per epoch, so the rest of the trajectory is
+            # the uninterrupted run's)
+            "step_in_epoch": int(getattr(self, "_step_in_epoch", 0)),
             "best_score": float(self.best_score),
         }
+        if self.state.ema_params is not None:
+            tree["ema_params"] = self.state.ema_params
+        if self.state.lora is not None:
+            # eval, predict and serve merge with it and need no LORA_* keys
+            tree["lora_scale"] = float(self._lora_scale)
+        return tree
 
     def _save_checkpoint(self, name: str):
         self.ckpt.save(name, self._ckpt_tree())
@@ -340,42 +373,126 @@ class BaseExecutor:
 
     def _maybe_resume(self):
         """Resume the full training state from last_ckp, else best_ckp. A
-        checkpoint whose optimizer state does not fit resumes its
-        parameters with a fresh optimizer; an unreadable one is skipped with
+        checkpoint whose optimizer state (or LoRA layout) does not fit
+        resumes its parameters with a fresh optimizer
+        (:meth:`_try_params_only_resume`); an unreadable one is skipped with
         a warning, down to a fresh start."""
         for name in ("last", "best"):
             if not self.ckpt.exists(name):
                 continue
             try:
                 restored = self.ckpt.restore(name, self.device)
-                self._check_params(restored["params"])
             except (OSError, EOFError, pickle.UnpicklingError, RuntimeError, ValueError,
                     KeyError) as e:
                 log.warning(f"(!) {name}_ckp exists but is unreadable ({e!r}): falling back to "
                             "an older checkpoint / fresh start")
                 continue
-            self.load_params(restored["params"])
-            opt = restored.get("opt_state")
-            fresh = self.state.opt_state
-            if (isinstance(opt, dict) and set(opt) == set(fresh)
-                    and all({n: t.shape for n, t in opt[k].items()}
-                            == {n: t.shape for n, t in fresh[k].items()} for k in ("mu", "nu"))):
-                self.state.opt_state = opt
-                kind = ""
+            if self._try_full_resume(restored):
+                log.info(f"###Resumed from {name}_ckp (epoch {self.state.epoch}"
+                         + (f", step {self._resume_step_in_epoch} into epoch "
+                            f"{self.state.epoch + 1}" if self._resume_step_in_epoch else "")
+                         + ")")
+                return
+            if self._try_params_only_resume(restored):
+                log.info(f"###Resumed PARAMS ONLY from {name}_ckp (converted, partial or "
+                         f"optimizer-mismatched checkpoint): the optimizer starts fresh at "
+                         f"step {self.state.step}")
+                return
+            log.warning(f"(!) {name}_ckp does not fit this model: falling back to an older "
+                        "checkpoint / fresh start")
+
+    def _resume_counters(self, restored: dict) -> None:
+        self.state.step = int(restored.get("step", 0))
+        self.state.epoch = int(restored.get("epoch", 0))
+        self.best_score = float(restored.get("best_score", 0.0))
+        self._resume_step_in_epoch = int(restored.get("step_in_epoch", 0) or 0)
+
+    def _try_full_resume(self, restored: dict) -> bool:
+        """Params, optimizer state, EMA and counters, when every shape
+        matches this run's."""
+        params, opt = restored.get("params"), restored.get("opt_state")
+        if not isinstance(params, dict) or not isinstance(opt, dict):
+            return False
+        mine = self._ckpt_params()
+        fresh = self.state.opt_state
+        try:
+            same = (tree_shapes(params) == tree_shapes(mine)
+                    and set(opt) == set(fresh)
+                    and all(k == "count" or tree_shapes(opt[k]) == tree_shapes(fresh[k])
+                            for k in fresh))
+        except (AttributeError, TypeError):
+            return False
+        if not same:
+            return False
+        self._set_trained_params(params)
+        self.state.opt_state = opt
+        self._bind_optimizer()
+        if self.state.ema_params is not None:
+            self.state.ema_params = self._salvage_ema(restored)
+        self._resume_counters(restored)
+        return True
+
+    def _salvage_ema(self, raw: dict):
+        """An EMA run resumed from a checkpoint: its saved average when it
+        matches the params tree, else the average re-seeded from the params."""
+        ema = raw.get("ema_params")
+        mine = self._ckpt_params()
+        if isinstance(ema, dict) and tree_shapes(ema) == tree_shapes(mine):
+            return tree_map(lambda t: t.to(self.device), ema)
+        return tree_map(lambda t: t.detach().clone(), mine)
+
+    def _try_params_only_resume(self, raw: dict) -> bool:
+        """Salvage the params of a checkpoint whose full restore does not fit:
+        a params-only one (a converted reference checkpoint), or one whose
+        optimizer state no longer matches (``OPTIMIZER`` switched). A LoRA
+        composite into a run without LoRA is merged with its saved scale; a
+        flat checkpoint into a LoRA run becomes the frozen base (the fresh
+        zero-``b`` adapters keep the merged model identical); LoRA into LoRA
+        keeps the trained adapters when their shapes match. Step, epoch and
+        the position in the epoch are kept; the optimizer starts fresh."""
+        params = raw.get("params")
+        if not isinstance(params, dict):
+            return False
+        adapters = None
+        if lora_mod.is_composite(params):
+            if self.state.lora is None:
+                params = lora_mod.merge_lora(params["base"], params["lora"],
+                                             float(raw.get("lora_scale", 1.0)))
             else:
-                kind = "PARAMS ONLY (the optimizer starts fresh) "
-            self.state.step = int(restored["step"])
-            self.state.epoch = int(restored["epoch"])
-            self.best_score = float(restored["best_score"])
-            log.info(f"###Resumed {kind}from {name}_ckp (epoch {self.state.epoch})")
-            return
+                if tree_shapes(params["lora"]) == tree_shapes(self.state.lora):
+                    adapters = params["lora"]
+                params = params["base"]
+        try:
+            self._check_params(params)
+        except ValueError:
+            return False
+        if self.state.lora is not None:
+            params = {"base": params,
+                      "lora": adapters if adapters is not None else self.state.lora}
+        self._set_trained_params(params)
+        self.state.opt_state = self.tx.init(self._opt_params())
+        self._bind_optimizer()
+        if self.state.ema_params is not None:
+            self.state.ema_params = self._salvage_ema(raw)
+        self._resume_counters(raw)
+        return True
 
     def _load_trained_checkpoint(self, loadtype: str):
-        """Eval/predict: the checkpoint's parameters into the model (cast to
-        its compute dtype); no optimizer state."""
+        """Eval/predict/serve: the checkpoint's parameters into the model
+        (cast to its compute dtype); no optimizer state. The EMA weights are
+        preferred where the checkpoint has them (``EVAL_EMA: false`` opts
+        out); a LoRA composite is merged with its saved ``lora_scale``."""
         restored = self.ckpt.restore(loadtype, self.device)
-        self._check_params(restored["params"])
-        self.load_params(restored["params"])
+        source = "params"
+        if "ema_params" in restored and self.config.get("EVAL_EMA", True):
+            source = "ema_params"
+            log.info("## using EMA weights from the checkpoint")
+        params = restored[source]
+        if lora_mod.is_composite(params):
+            params = lora_mod.merge_lora(params["base"], params["lora"],
+                                         float(restored.get("lora_scale", 1.0)))
+        self._check_params(params)
+        self.load_params(params)
         self.best_score = float(restored["best_score"])
 
     # -- serve mode's deferred init ----------------------------------------------
@@ -400,25 +517,108 @@ class BaseExecutor:
     def _random_params(self) -> Dict[str, torch.Tensor]:
         raise NotImplementedError
 
-    def load_params(self, params: Dict[str, torch.Tensor]) -> None:
+    def load_params(self, params: Dict[str, torch.Tensor], lora=None) -> None:
         """Every parameter by name, in f32 (a checkpoint's masters, or a
         flax tree through ``models.bridge.flax_to_state_dict``), into the
         model and the train state; in train mode the optimizer state starts
-        afresh. The values are copied into the parameters' own storage, so
-        whatever holds their addresses (the serving engines' captured CUDA
-        graphs) reads the new ones."""
+        afresh. Under LoRA ``params`` is the frozen base, and ``lora`` (by
+        default the current adapters) its adapters. The values are copied
+        into the parameters' own storage, so whatever holds their addresses
+        (the serving engines' captured CUDA graphs) reads the new ones."""
         if self._abstract_params:
             self._materialize()
-        self.state.params = bind_params(self.model, params)
+        if self.state.lora is not None:
+            params = {"base": params, "lora": self.state.lora if lora is None else lora}
+        self._set_trained_params(params)
         if self.mode == "train":
-            self.state.opt_state = self.tx.init(self.state.params)
+            self.state.opt_state = self.tx.init(self._opt_params())
             self._bind_optimizer()
+            if self.state.ema_params is not None:
+                self.state.ema_params = tree_map(lambda t: t.detach().clone(),
+                                                 self._ckpt_params())
+
+    def _set_trained_params(self, params) -> None:
+        """A params tree (flat, or ``{"base", "lora"}`` under LoRA) into the
+        model and the state. Under LoRA the adapted weights' base masters
+        are tensors of their own and the module holds the merged weights
+        (what eval and predict decode with)."""
+        self._uninstall_lora()
+        if self.state.lora is None:
+            self.state.params = bind_params(self.model, params)
+            return
+        masters = bind_params(self.model, params["base"])
+        self.state.params = {n: t.detach().clone() if n in params["lora"] and
+                             t is self.model.get_parameter(n) else t
+                             for n, t in masters.items()}
+        self.state.lora = {n: {k: v.detach().to(self.device, torch.float32).clone()
+                               .requires_grad_(True) for k, v in ad.items()}
+                           for n, ad in params["lora"].items()}
+        self._refresh_lora_weights()
+
+    def _opt_params(self) -> Dict[str, torch.Tensor]:
+        """What the optimizer updates, by name: the masters, or under LoRA
+        the adapters alone (``{weight name}.a`` / ``.b``): the base holds no
+        optimizer state."""
+        if self.state.lora is None:
+            return self.state.params
+        return {f"{n}.{k}": t for n, ad in self.state.lora.items() for k, t in ad.items()}
 
     def _bind_optimizer(self):
-        self._trainable = list(self.state.opt_state["mu"])
-        self._copies = compute_copies(self.model, self.state.params, self._trainable)
+        self._trainable = [n for n in self._opt_params() if self.tx.trainable(n)]
+        lora_on = self.state.lora is not None
+        self._copies = [] if lora_on else compute_copies(self.model, self.state.params,
+                                                         self._trainable)
+        trainable = set(self._trainable)
         for name, p in self.model.named_parameters():
-            p.requires_grad_(name in self.state.opt_state["mu"])
+            p.requires_grad_(not lora_on and name in trainable)
+
+    # -- LoRA ---------------------------------------------------------------------
+
+    def _maybe_enable_lora(self) -> None:
+        """``LORA_RANK: N`` (train mode): adapters for the targeted weights
+        (``train/lora.py``; ``a`` drawn from ``SEED + 1``), the model's
+        parameters frozen as the base."""
+        spec = lora_mod.from_config(self.config)
+        if spec is None:
+            return
+        generator = torch.Generator(device=self.device).manual_seed(
+            int(self.config.get("SEED", 13)) + 1)
+        adapters = lora_mod.init_lora(self.model, spec, generator, self.device)
+        self._lora_scale = spec.scale
+        self.state.lora = {}  # LoRA on: _set_trained_params splits base and adapters
+        self._set_trained_params({"base": self.state.params, "lora": adapters})
+        log.info(f"# LoRA: rank {spec.rank}, alpha {spec.alpha}, "
+                 f"{lora_mod.n_params(adapters) / 1e6:.2f}M trainable adapter params "
+                 f"({lora_mod.n_params(self.state.params) / 1e6:.1f}M base frozen)")
+
+    @torch.no_grad()
+    def _refresh_lora_weights(self) -> None:
+        """The module's adapted weights := base + scale * (A @ B)^T, in their
+        compute dtype, in place."""
+        for name, ad in self.state.lora.items():
+            p = self.model.get_parameter(name)
+            p.copy_(lora_mod.merged_weight(self.state.params[name], ad, self._lora_scale))
+
+    def _install_lora(self) -> None:
+        """The adapted weights rebuilt from the adapters with their autograd
+        graph and put in the modules' place until :meth:`_uninstall_lora`
+        (after the optimizer): a REMAT recompute in the backward reads the
+        same tensors."""
+        self._uninstall_lora()
+        installed = []
+        for name, ad in self.state.lora.items():
+            module_name, _, leaf = name.rpartition(".")
+            module = self.model.get_submodule(module_name)
+            weight = module._parameters[leaf]
+            merged = lora_mod.merged_weight(self.state.params[name], ad, self._lora_scale)
+            module._parameters[leaf] = merged.to(weight.dtype)
+            installed.append((module, leaf, weight))
+        self._lora_installed = installed
+
+    def _uninstall_lora(self) -> None:
+        for module, leaf, weight in getattr(self, "_lora_installed", ()):
+            module._parameters[leaf] = weight
+        self._lora_installed = []
 
     # -- train / infer ---------------------------------------------------------
 
@@ -426,16 +626,28 @@ class BaseExecutor:
         """The model's structural ViT freeze (the reference freezes its ViT
         with ``requires_grad=False``): the ``vit`` parameters take no
         gradient, no optimizer state and no update, so no update rule
-        (decoupled weight decay included) moves them."""
-        if not getattr(self.model_config, "freeze_vit", False):
+        (decoupled weight decay included) moves them. Under LoRA the
+        optimizer sees the adapters alone (:meth:`_opt_params`)."""
+        if self.state.lora is not None or not getattr(self.model_config, "freeze_vit", False):
             return None
         return lambda name: name.split(".", 1)[0] == "vit"
 
+    def _batch_keys(self, batch_keys: tuple) -> tuple:
+        """``VIT_CACHE``: a dataset with cached encodings feeds
+        ``vit_encodings`` in place of ``pixel_values``."""
+        if "pixel_values" in batch_keys:
+            return batch_keys + ("vit_encodings",)
+        return batch_keys
+
     def _model_batch(self, batch: dict) -> dict:
-        return {k: batch[k] for k in self.model_class.BATCH_KEYS}
+        keys = self.model_class.BATCH_KEYS
+        if "vit_encodings" in batch and "pixel_values" in keys:
+            keys = tuple(k for k in keys if k != "pixel_values") + ("vit_encodings",)
+        return {k: batch[k] for k in keys}
 
     def _to_device(self, batch: dict) -> dict:
-        return to_device_batch(batch, self.device, self.model_class.BATCH_KEYS + LABEL_KEYS)
+        return to_device_batch(batch, self.device,
+                               self._batch_keys(self.model_class.BATCH_KEYS) + LABEL_KEYS)
 
     def _loss_from_batch(self, batch) -> torch.Tensor:
         """Teacher-forced loss of a device batch in the model's current mode:
@@ -457,49 +669,185 @@ class BaseExecutor:
             raise ValueError(f"LABEL_SMOOTHING must be in [0, 1), got {a}")
         return a
 
-    def forward_loss(self, batch) -> torch.Tensor:
+    def _ema_decay(self) -> float:
+        """``EMA_DECAY`` in (0, 1): keep an exponential moving average of the
+        params, updated after every step; checkpoints hold it and eval,
+        predict and serve prefer it (``EVAL_EMA: false`` opts out).
+        0/absent = off."""
+        d = float(self.config.get("EMA_DECAY", 0) or 0)
+        if d and not (0.0 < d < 1.0):
+            raise ValueError(f"EMA_DECAY must be in (0, 1), got {d}")
+        return d
+
+    def _grad_accum_steps(self) -> int:
+        """``GRAD_ACCUM_STEPS: N`` splits each batch into N sequential
+        microbatches and applies one optimizer update: the loss and the
+        gradients are the mean of the microbatches' (each microbatch's
+        token-mean CE weighted equally, the JAX executor's rule; that is the
+        batch's token mean only when the microbatches count the same
+        tokens)."""
+        accum = int(self.config.get("GRAD_ACCUM_STEPS", 1) or 1)
+        bs = int(self.config.TRAIN_BATCH_SIZE)
+        if accum > 1 and bs % accum:
+            raise ValueError(f"GRAD_ACCUM_STEPS={accum} must divide TRAIN_BATCH_SIZE={bs}: "
+                             "each microbatch is batch/accum rows")
+        return accum
+
+    def forward_loss(self, batch, micro=None) -> torch.Tensor:
         """The train step's forward: training mode, dropout drawn from
-        ``(SEED, step)`` (every dropout site of the model, a custom decoder's
-        included, draws from ``model.t5.dropout_rng``), the loss of a device
-        batch."""
+        ``(SEED, step)``, or ``(SEED, step, micro)`` for microbatch ``micro``
+        of an accumulated step (every dropout site of the model, a custom
+        decoder's included, draws from ``model.t5.dropout_rng``), the loss of
+        a device batch. Under LoRA the adapted weights are rebuilt from the
+        adapters first."""
         self.model.train()
-        self.model.t5.dropout_rng.reseed(self.config.get("SEED", 13), self.state.step)
+        self.model.t5.dropout_rng.reseed(self.config.get("SEED", 13), self.state.step, micro)
+        if self.state.lora is not None:
+            self._install_lora()
         return self._loss_from_batch(batch)
 
-    def apply_gradients(self) -> None:
-        """The train step's optimizer: the module's gradients, cast up into
-        f32 master gradients, update the masters; the bf16 compute copies
-        are refreshed from them and the gradients dropped."""
+    def _collect_grads(self) -> Dict[str, torch.Tensor]:
+        """The f32 gradient of everything the optimizer updates (zeros where
+        the forward gave none), read off the module or the adapters, which
+        are then cleared."""
+        if self.state.lora is not None:  # the module's own weights take no gradient
+            grads = {n: torch.zeros_like(t) if t.grad is None else t.grad
+                     for n, t in self._opt_params().items()}
+            for t in self._opt_params().values():
+                t.grad = None
+            return grads
         grads = master_grads(self.model, self.state.params, self._trainable)
-        self.tx.update_(self.state.params, grads, self.state.opt_state)
-        refresh_compute_weights_(self._copies)
         self.model.zero_grad(set_to_none=True)
+        return grads
+
+    def _scale_grads_(self, grads: Dict[str, torch.Tensor]) -> None:
+        """A hook on the step's f32 gradients before the optimizer (the
+        customized executors' encoder freeze)."""
+
+    def apply_gradients(self, grads=None) -> None:
+        """The train step's optimizer: the gradients (the module's, cast up
+        into f32 master gradients, unless ``grads`` are given) update the
+        masters or the adapters; the compute weights are refreshed from
+        them, the EMA moves, and the gradients are dropped."""
+        if grads is None:
+            grads = self._collect_grads()
+        self._scale_grads_(grads)
+        self.tx.update_(self._opt_params(), grads, self.state.opt_state)
+        if self.state.lora is not None:
+            self._uninstall_lora()
+            self._refresh_lora_weights()
+        else:
+            refresh_compute_weights_(self._copies)
+        if self.state.ema_params is not None:
+            ema_update_(self.state.ema_params, self._ckpt_params(), self._ema_decay())
         self.state.step += 1
 
     def train_step(self, batch: dict) -> torch.Tensor:
         """One optimizer step on a numpy batch; returns the loss (a 0-d
-        tensor on the device)."""
-        loss = self.forward_loss(self._to_device(batch))
-        loss.backward()
-        self.apply_gradients()
-        return loss.detach()
+        tensor on the device). With ``GRAD_ACCUM_STEPS`` the batch runs as
+        that many microbatches of consecutive rows, their f32 gradients
+        summed and scaled by 1/N."""
+        accum = self._grad_accum_steps()
+        if accum <= 1:
+            loss = self.forward_loss(self._to_device(batch))
+            loss.backward()
+            self.apply_gradients()
+            return loss.detach()
+        rows = len(next(iter(batch.values()))) // accum
+        total, summed = None, None
+        for i in range(accum):
+            micro = {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
+            loss = self.forward_loss(self._to_device(micro), micro=i)
+            loss.backward()
+            grads = self._collect_grads()
+            if summed is None:
+                summed, total = grads, loss.detach()
+            else:
+                torch._foreach_add_([summed[n] for n in grads], list(grads.values()))
+                total = total + loss.detach()
+        inv = 1.0 / accum
+        torch._foreach_mul_(list(summed.values()), inv)
+        self.apply_gradients(summed)
+        return total * inv
 
     def _train_epoch(self, epoch: int) -> float:
+        """One epoch of steps over the epoch-seeded shuffle. ``SAVE_EVERY_STEPS``
+        refreshes ``last_ckp`` inside the epoch, tagged with the step in the
+        epoch; a run resumed from such a checkpoint skips the batches it
+        already trained."""
         c = self.config
         n_steps = num_batches(len(self.train_data), c.TRAIN_BATCH_SIZE, drop_last=True)
         batches = batch_iterator(self.train_data, c.TRAIN_BATCH_SIZE, shuffle=True,
                                  seed=c.get("SEED", 13) + epoch, drop_last=True)
+        save_every = int(c.get("SAVE_EVERY_STEPS", 0) or 0)
+        skip = int(getattr(self, "_resume_step_in_epoch", 0) or 0)
+        self._resume_step_in_epoch = 0  # only the interrupted epoch skips
+        if skip:
+            log.info(f"--TRAINING--|Epoch: {epoch}| fast-forwarding {skip} already-trained "
+                     "batches from the mid-epoch checkpoint")
         total, it = 0.0, 0
         t0 = time.perf_counter()
         for batch, _ in batches:
+            if it < skip:
+                it += 1
+                continue
             total += float(self.train_step(batch))
             it += 1
-            if it == 1 or it % 20 == 0 or it == n_steps:
+            done = it - skip
+            if done == 1 or it % 20 == 0 or it == n_steps:
                 elapsed = time.perf_counter() - t0
                 log.info(f"--TRAINING--|Epoch: {epoch}| Step: {it}/{n_steps} "
-                         f"| Loss: {round(total / it, 2)} | {1e3 * elapsed / it:.1f} ms/step, "
-                         f"{it * c.TRAIN_BATCH_SIZE / elapsed:.1f} samples/s")
-        return total / max(it, 1)
+                         f"| Loss: {round(total / done, 2)} | {1e3 * elapsed / done:.1f} ms/step, "
+                         f"{done * c.TRAIN_BATCH_SIZE / elapsed:.1f} samples/s")
+            if save_every and c.get("SAVE") and it % save_every == 0:
+                # tagged even at it == n_steps: the epoch's eval and counter
+                # have not run yet, so a resume skips every batch of it
+                self._step_in_epoch = it
+                self._save_checkpoint("last")
+                self._step_in_epoch = 0
+        return total / max(it - skip, 1)
+
+    # -- VIT_CACHE ------------------------------------------------------------------
+
+    def _maybe_attach_vit_cache(self, dataset_attrs) -> None:
+        """``VIT_CACHE: true``: encode each unique image once with the frozen
+        ViT and feed the encodings as a batch input (``data/vit_cache.py``).
+        Exact (the ViT has no dropout) while the ViT cannot change under the
+        cache: always in eval and predict; in training only when the model
+        freezes its ViT (the LaTr family, not PreSTU) and no LoRA adapter
+        targets it. Otherwise it warns and falls back."""
+        c = self.config
+        if not c.get("VIT_CACHE"):
+            return
+        if getattr(self.model_config, "vit", None) is None:
+            log.warning(f"(!) VIT_CACHE ignored: {c.MODEL_CLASS} has no image encoder")
+            return
+        if self.mode == "train":
+            if not getattr(self.model_config, "freeze_vit", False):
+                log.warning(f"(!) VIT_CACHE ignored in train mode: {c.MODEL_CLASS} trains its "
+                            "ViT, the cache would go stale every step")
+                return
+            if any(n.startswith("vit.") for n in (self.state.lora or {})):
+                log.warning("(!) VIT_CACHE ignored: LoRA adapters target the ViT")
+                return
+        self._ensure_params()
+        model = self.model
+
+        @torch.no_grad()  # not inference mode: training saves the encodings for backward
+        def encode(pixels):
+            model.eval()
+            return model.encode_image(torch.from_numpy(np.asarray(pixels)).to(self.device))
+
+        batch_size = int(c.get("VIT_CACHE_BATCH", 0) or c.EVAL_BATCH_SIZE)
+        max_bytes = int(float(c.get("VIT_CACHE_MAX_GB", 8)) * 2**30)
+        for attr in dataset_attrs:
+            dataset = getattr(self, attr, None)
+            if dataset is None:
+                continue
+            t0 = time.perf_counter()
+            ok, reason = attach_vit_cache(dataset, encode, batch_size, max_bytes)
+            log.info(f"# VIT_CACHE {attr}: " + (f"{reason} ({time.perf_counter() - t0:.1f}s)"
+                                                 if ok else f"skipped: {reason}"))
 
     def infer(self, dataset, batch_size: int, max_length: int,
               return_scores: bool = False) -> List[str]:
@@ -551,7 +899,7 @@ class BaseExecutor:
         return (answers, scores) if return_scores else answers
 
     def _device_batch(self, batch: dict) -> dict:
-        return to_device_batch(batch, self.device, self.model_class.BATCH_KEYS)
+        return to_device_batch(batch, self.device, self._batch_keys(self.model_class.BATCH_KEYS))
 
     def _get_generate_fn(self, max_length: int, with_scores: bool = False):
         key = (max_length, with_scores)

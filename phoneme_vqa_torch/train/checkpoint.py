@@ -4,14 +4,17 @@
 * ``{SAVE_PATH}/last_ckp`` saved every epoch, ``best_ckp`` on metric
   improvement;
 * contents ``{params (the f32 masters), opt_state, step, epoch,
-  step_in_epoch, best_score}``;
+  step_in_epoch, best_score}`` (+ ``ema_params``, ``lora_scale``);
 * train auto-resumes from ``last_ckp`` (then ``best_ckp``) if present;
 * eval/predict load ``{evaltype|predicttype}_ckp`` with a ``./models``
   fallback and a hard error otherwise.
 
 A checkpoint is one ``torch.save`` file, written to a temporary path and
-renamed into place, so a reader never sees a partial one. The JAX
-package's orbax directories are not read (weight import is ROADMAP A13).
+renamed into place, so a reader never sees a partial one. A LoRA run's
+``params`` is ``{"base", "lora"}`` with ``lora_scale``; an EMA run adds
+``ema_params``; a ``SAVE_EVERY_STEPS`` save tags its ``step_in_epoch``. The
+JAX package's orbax directories are refused: reading one needs
+tensorstore, which the card machine lacks.
 """
 
 from __future__ import annotations
@@ -57,7 +60,10 @@ class CheckpointManager:
             path = self._path(name, root)
             if os.path.isdir(path):
                 raise ValueError(f"{path} is a directory (an orbax checkpoint of the JAX "
-                                 f"package?): importing one is ROADMAP A13")
+                                 f"package?): reading one needs tensorstore, which the card "
+                                 f"machine lacks, so it is refused (ROADMAP C); convert a "
+                                 f"reference .pth with python -m "
+                                 f"phoneme_vqa_torch.import_reference_ckpt")
             if os.path.isfile(path):
                 restored = torch.load(path, map_location=device, weights_only=True)
                 log.info(f"###Loaded {name}_ckp from {path}")

@@ -113,13 +113,12 @@ class _CustomizedMixin:
         finally:
             self._encoder_grad_scale = 1.0
 
-    def apply_gradients(self) -> None:
+    def _scale_grads_(self, grads) -> None:
         scale = self._encoder_grad_scale
         if scale != 1.0:
-            for name, p in self.model.named_parameters():
-                if p.grad is not None and name.split(".", 1)[0] in self.FREEZE_SUBTREES:
-                    p.grad.mul_(scale)
-        super().apply_gradients()
+            for name, g in grads.items():
+                if name.split(".", 1)[0] in self.FREEZE_SUBTREES:
+                    g.mul_(scale)
 
 
 @EXECUTORS.register("CustomizedLaTr_Executor")

@@ -18,6 +18,7 @@ from ..data.adapters import textlayout_ocr_adapt
 from ..data.loader import num_batches
 from ..data.synthetic import read_qa_csv
 from ..models import latr as latr_mod
+from ..models.hf_import import ImportReport, import_latr_weights
 from ..tokenizers.backbone import load_backbone_tokenizer
 from ..utils.logger import get_logger
 from ..utils.registry import EXECUTORS, MODEL_CONFIGS
@@ -31,7 +32,7 @@ from .optim import (
     optimizer_kind_from_config,
     schedule_from_config,
 )
-from .state import TrainState, bind_params
+from .state import TrainState, bind_params, tree_map
 
 log = get_logger(__name__)
 
@@ -135,13 +136,32 @@ class LaTrExecutor(BaseExecutor):
         self.ckpt = CheckpointManager(self.config.SAVE_PATH)
         n = sum(p.numel() for p in self.model.parameters())
         log.info(f"# Model parameters: {n / 1e6:.1f}M")
-        if self.mode == "serve":
+        if self._defer_params_init():
             self._abstract_params = True
             self.state = TrainState(params={}, opt_state=None)
             return
         self._materialize()
         self.state = TrainState(params=bind_params(self.model, self._random_params()),
                                 opt_state=None)
+        self._maybe_import_pretrained()
+
+    def _defer_params_init(self) -> bool:
+        """Serve mode leaves the model on the meta device (a checkpoint
+        restore fills it); not so when ``pretrained_weights_path`` imports
+        into the random init."""
+        return self.mode == "serve" and not self.config.get("pretrained_weights_path")
+
+    def _maybe_import_pretrained(self):
+        """``pretrained_weights_path``: a directory with ``t5/`` and ``vit/``
+        HF checkpoints (``models/hf_import.py``) imported into the f32
+        masters, before the compute weights are cast from them; parameters
+        no key fills keep their init."""
+        path = self.config.get("pretrained_weights_path")
+        if path:
+            self.import_report = ImportReport()
+            params = import_latr_weights(self.state.params, path, report=self.import_report)
+            self.state.params = bind_params(self.model, params)
+            log.info(f"# Imported pretrained weights from {path}")
 
     def _random_params(self):
         generator = torch.Generator(device=self.device).manual_seed(self.config.get("SEED", 13))
@@ -151,6 +171,19 @@ class LaTrExecutor(BaseExecutor):
         return cfg_builder.build(self.config)
 
     # -- training ----------------------------------------------------------------
+
+    def _make_optimizer(self, schedule):
+        """The optimizer the config names (``OPTIMIZER``, ``OPT_MU_DTYPE``,
+        ``GRAD_CLIP``, ``WEIGHT_DECAY``) over ``schedule``; adafactor keeps
+        the Linear and Conv weights' statistics in flax's layout."""
+        c = self.config
+        kernels = [f"{name}.weight" for name, m in self.model.named_modules()
+                   if isinstance(m, (torch.nn.Linear, torch.nn.Conv2d))]
+        return build_optimizer(
+            schedule, betas=tuple(c.BETAS), mu_dtype=mu_dtype_from_config(c),
+            kind=optimizer_kind_from_config(c), freeze_predicate=self._freeze_predicate(),
+            kernels=kernels, **optimizer_extras_from_config(c),
+        )
 
     def _default_schedule(self, steps_per_epoch: int):
         """The family's LR schedule when ``LR_SCHEDULE`` is unset."""
@@ -162,11 +195,11 @@ class LaTrExecutor(BaseExecutor):
         schedule = schedule_from_config(c, self._default_schedule(steps_per_epoch),
                                         steps_per_epoch)
         self._lr_schedule = schedule  # metrics.jsonl logs the live LR
-        self.tx = build_optimizer(
-            schedule, betas=tuple(c.BETAS), mu_dtype=mu_dtype_from_config(c),
-            kind=optimizer_kind_from_config(c), freeze_predicate=self._freeze_predicate(),
-            **optimizer_extras_from_config(c),
-        )
-        self.state = TrainState.create(self.state.params, self.tx)
+        self._grad_accum_steps()  # a value that does not divide the batch raises here
+        self._maybe_enable_lora()
+        self.tx = self._make_optimizer(schedule)
+        self.state.opt_state = self.tx.init(self._opt_params())
+        if self._ema_decay():
+            self.state.ema_params = tree_map(lambda t: t.detach().clone(), self._ckpt_params())
         self._bind_optimizer()
         self._maybe_resume()

@@ -19,7 +19,7 @@ In an f32 model every master is its module parameter: one set of weights.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Iterable, List
+from typing import Any, Dict, Iterable, List, Optional
 
 import torch
 from torch import nn
@@ -31,10 +31,43 @@ class TrainState:
     opt_state: Any
     step: int = 0
     epoch: int = 0
+    # LoRA (``train/lora.py``): weight name -> {"a", "b"}; ``params`` is then
+    # the frozen base
+    lora: Optional[dict] = None
+    # EMA_DECAY: the average of the checkpoint's params tree (``params``, or
+    # ``{"base", "lora"}`` under LoRA)
+    ema_params: Optional[dict] = None
 
     @classmethod
     def create(cls, params: Dict[str, torch.Tensor], tx) -> "TrainState":
         return cls(params=params, opt_state=tx.init(params), step=0, epoch=0)
+
+
+def tree_leaves(tree) -> List[torch.Tensor]:
+    """The tensors of a nested dict, in insertion order."""
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    return [tree]
+
+
+def tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def tree_shapes(tree):
+    return tree_map(lambda t: tuple(t.shape), tree)
+
+
+@torch.no_grad()
+def ema_update_(ema: dict, params: dict, decay: float) -> None:
+    """``e * decay + p * (1 - decay)`` over floating leaves, in place (the
+    JAX executor's EMA step)."""
+    e = [x for x in tree_leaves(ema) if x.is_floating_point()]
+    p = [x for x in tree_leaves(params) if x.is_floating_point()]
+    torch._foreach_mul_(e, decay)
+    torch._foreach_add_(e, torch._foreach_mul(p, 1.0 - decay))
 
 
 def bind_params(model: nn.Module, params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

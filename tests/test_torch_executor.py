@@ -154,8 +154,7 @@ def test_eval_loads_from_the_models_fallback(trained, tmp_path, monkeypatch):
     assert got == want
 
 
-KNOB_VALUES = {"GRAD_ACCUM_STEPS": 2, "MESH": {"data": 2, "model": 1},
-               "FLASH": False, "SAL_FUSED": False}
+KNOB_VALUES = {"MESH": {"data": 2, "model": 1}, "FLASH": False, "SAL_FUSED": False}
 KNOBS = [(key, KNOB_VALUES.get(key, True)) for key, _, _ in t_base.UNPORTED]
 
 

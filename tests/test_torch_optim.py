@@ -75,10 +75,37 @@ def test_unknown_schedule_and_optimizer_raise():
 
 @pytest.mark.parametrize("key,value", [("OPTIMIZER", "adafactor"), ("OPT_MU_DTYPE", "bfloat16")])
 def test_unported_optimizer_knobs_raise(key, value):
+    """Both knobs raised until the port had them (ROADMAP A12); now each
+    builds optax's rule: three steps on a factored (200 x 130 kernel), a
+    square and a vector parameter equal optax's within 1e-6, and an unknown
+    first-moment dtype raises."""
     config = TConfig({key: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        t_optim.build_optimizer(lambda s: 1.0, mu_dtype=t_optim.mu_dtype_from_config(config),
-                                kind=t_optim.optimizer_kind_from_config(config))
+    schedule = lambda s: 1e-2 * 0.9 ** s  # noqa: E731
+    tx = t_optim.build_optimizer(schedule, mu_dtype=t_optim.mu_dtype_from_config(config),
+                                 kind=t_optim.optimizer_kind_from_config(config),
+                                 kernels=("w", "sq"))
+    if key == "OPTIMIZER":
+        want_tx = optax.adafactor(schedule, multiply_by_parameter_scale=False, momentum=None)
+    else:
+        want_tx = optax.adam(schedule, b1=0.9, b2=0.98, eps=1e-9, mu_dtype=jnp.bfloat16)
+    rng = np.random.RandomState(0)
+    shapes = {"w": (200, 130), "sq": (128, 128), "b": (130,)}
+    flax = lambda n, a: a.T if n in ("w", "sq") else a  # noqa: E731  (the (in, out) layout)
+    start = {n: rng.randn(*sh).astype(np.float32) for n, sh in shapes.items()}
+    params = {n: torch.tensor(a) for n, a in start.items()}
+    want = {n: jnp.asarray(flax(n, a)) for n, a in start.items()}
+    state, want_state = tx.init(params), want_tx.init(want)
+    for _ in range(3):
+        g = {n: rng.randn(*sh).astype(np.float32) for n, sh in shapes.items()}
+        tx.update_(params, {n: torch.tensor(a) for n, a in g.items()}, state)
+        updates, want_state = want_tx.update({n: jnp.asarray(flax(n, a)) for n, a in g.items()},
+                                             want_state, want)
+        want = optax.apply_updates(want, updates)
+    for n in shapes:
+        np.testing.assert_allclose(flax(n, params[n].numpy()), np.asarray(want[n]), rtol=1e-6,
+                                   atol=1e-6, err_msg=n)
+    with pytest.raises(ValueError, match="OPT_MU_DTYPE"):
+        t_optim.mu_dtype_from_config(TConfig({"OPT_MU_DTYPE": "int8"}))
 
 
 def _tree(seed):

@@ -490,18 +490,39 @@ def test_reload_swaps_real_weights(latr, tmp_path):
 
 
 def test_unported_knobs_raise(latr, tmp_path):
-    """LoRA adapters and the ViT encoding cache are ROADMAP A12, a mesh of
-    more than one device A15: each raises, naming its item."""
-    _, t_ex, t_cfg, _ = latr
-    with pytest.raises(NotImplementedError, match="A12"):
-        ServingEngine(t_ex, *t_ex.serve_frames, warmup=False, adapters={"a": {}})
-    for key, value, item in (("VIT_CACHE", True, "A12"), ("MESH", {"data": 2}, "A15")):
-        cfg = t_config.Config({**t_cfg, key: value})
-        with pytest.raises(NotImplementedError, match=item):
-            T_EXECUTORS.get(cfg.EXECUTOR)(cfg, "serve", device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
-        t_serve.build_engine(t_serve.parse_args(
-            ["--config-file", "unused.yaml", "--adapter", "a=dir", "--device", "cpu"]))
+    """A mesh of more than one device is ROADMAP A15 and raises, naming it.
+    LoRA adapters and the ViT encoding cache, which raised here before, now
+    work: the engine takes adapters (checked against the base), a serve-mode
+    executor takes ``VIT_CACHE`` and the engine builds its encoding table,
+    and ``serve --adapter`` loads a LoRA run's adapters (held in full in
+    tests/test_torch_lora.py and tests/test_torch_vit_cache.py)."""
+    _, t_ex, t_cfg, reqs = latr
+    cfg = t_config.Config({**t_cfg, "MESH": {"data": 2}})
+    with pytest.raises(NotImplementedError, match="A15"):
+        T_EXECUTORS.get(cfg.EXECUTOR)(cfg, "serve", device="cpu")
+    name = "t5.encoder.block_0.attn.q.weight"
+    d_out, d_in = t_ex.model.get_parameter(name).shape
+    adapter = {"lora": {name: {"a": torch.zeros(d_in, 2), "b": torch.zeros(2, d_out)}},
+               "scale": 1.0}  # b = 0: the merged weights are the base
+    with ServingEngine(t_ex, *t_ex.serve_frames, batch_size=4, max_wait_ms=20,
+                       max_answer_length=10, adapters={"zero": adapter}) as eng:
+        assert submit_all(eng, reqs) == [eng.submit(i, q, adapter="zero").result(timeout=TIMEOUT)
+                                         for i, q in reqs]
+    answers = {}
+    for cache in (False, True):  # serve mode: the tokenizer has seen these questions only
+        cfg = t_config.Config({**t_cfg, "VIT_CACHE": cache})
+        served = T_EXECUTORS.get(cfg.EXECUTOR)(cfg, "serve", device="cpu")
+        served.load_params({n: p.detach().clone() for n, p in t_ex.state.params.items()})
+        with ServingEngine(served, *served.serve_frames, batch_size=4, max_wait_ms=20,
+                           max_answer_length=10) as eng:
+            assert (eng._enc_cache is not None) == cache
+            answers[cache] = submit_all(eng, reqs)
+    assert answers[True] == answers[False]
+    trainer = T_EXECUTORS.get(t_cfg.EXECUTOR)(t_config.Config(
+        {**t_cfg, "SAVE_PATH": str(tmp_path), "LORA_RANK": 2}), "train", device="cpu")
+    trainer._save_checkpoint("best")
+    loaded = t_serve.load_adapter(str(tmp_path), "cpu")
+    assert set(loaded["lora"]) == set(trainer.state.lora) and loaded["scale"] == 2.0
 
 
 @pytest.mark.parametrize("family", ["latr", "phoneme_latr"])
