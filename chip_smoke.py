@@ -134,14 +134,14 @@ Phases (any failure exits non-zero; nothing is caught and carried past):
     confidences within 1e-6 of exp(greedy's scores)
 14. the gathered ServingEngine (buckets 1, 4, 32) over LaTr-base and
     PhonemeLaTr-base: every bucket's replayed rows bit for bit the eager
-    generate's, and 256 requests from 8 client threads answered as
+    generate's, and 128 requests from 8 client threads answered as
     executor.infer answers them, in bf16 and f32; 24 attention launches per
     decoded batch; the capture time and peak memory per bucket, answers/s
     under the flood (beside the eager infer's), p50 / p99 latency alone and
     under the flood, the device busy share of a flood window (profiler)
 15. the ContinuousEngine (32 slots, one CUDA graph replay a dispatch) over
-    LaTr-base on a grid of horizon x prefill chunk (4, 8, 16 x 8, 16: the
-    CLI's defaults), then PhonemeSaL-base (12 SaL launches a prefill) at the
+    LaTr-base on a grid of horizon 4, 8, 16 at prefill chunk 16 (the CLI's
+    defaults: 4 x 16), then PhonemeSaL-base (12 SaL launches a prefill) at the
     grid's best point: launches per prefill chunk, the phase-14 timings, f32
     answers equal infer's, bf16 rows equal greedy's but at near-ties (twice
     the measured window-step logit gap), a mid-stream join
@@ -178,6 +178,38 @@ Phases (any failure exits non-zero; nothing is caught and carried past):
 22. VIT_CACHE: LaTr-base eval over 64 questions on 16 images, answers equal
     the uncached run's with 12 launches a batch (24 uncached); the serving
     encoding cache hits, answers as an uncached engine, flushes on reload
+
+24. (run first, after phase 2, while torch.profiler still records every
+    CUDA kernel; 23 too but its NUMWORKERS) both kernels at the head slices
+    a tensor-parallel rank gives them (tp 2 and 4: the ViT and T5 encoder serving shapes, the SaL
+    serving shape with head slices of bias1d and cell_bias), q/k/v as head
+    slices of (B, L, H, D) storage: every rank's call equals the full call's
+    heads bit for bit; kernel, plain and SDPA times on the slice, device
+    time, the bound
+23. the last A12 knobs on full-width LaTr-base (phase 7's config):
+    FEATURE_CACHE a miss then a hit (featurize against load seconds; the
+    arrays equal, the first-step loss bit-identical), PROFILE_DIR over 3
+    steps (the trace's size and write seconds; the attention kernel named
+    exactly 48 times a step), DEBUG_NANS on against off (ms a step) and a
+    NaN injected into one T5 block's output raising FloatingPointError that
+    names the block; NUMWORKERS 0 against 2, run before 25 (interleaved ms
+    a step, losses bit-identical; a profiler session after its prefetch
+    threads may record no CUDA kernel, and one such session is logged)
+25. the mesh lifecycle at full width, 4 layers deep a stack
+    (phoneme_vqa_torch.dryrun.run_mesh, f32, batch 4, 3 steps): (a) one
+    NCCL process a card with MESH {data: -1} (on
+    one card a world of one), (b) two gloo processes on one card with
+    {model: 2} (beam search too), {data: 2} and {data: 2, zero1: true} (with
+    2 or 4 cards, also NCCL
+    across them at {model: 2} and {data: 2, model: 2, zero1: true}), and a
+    SaL-base step at
+    {model: 2} (4 SaL launches a rank, 6 heads each); against the same
+    steps in this process: the loss within 1e-4, the masters after the
+    first step within 2 lr (all but 0.1 % within rtol 1e-4 / atol 2e-5), the
+    checkpoint written on the mesh read back on it and in one process bit
+    for bit, greedy rows at the seeded init identical but at ties within
+    1e-4, beam rows identical; per rank ms a step, peak GB, optimizer-state
+    bytes
 
 Prints the run's total seconds, a {"kernels": [...]} line, the card line, and last
 {"ok": true, "device": {...}}. Needs the repo's phoneme_vqa_torch package;
@@ -1030,7 +1062,8 @@ def _split_time(prefix: str, fn, iters=20, host_iters=200) -> dict:
     kernel time per call that torch.profiler records over ``iters`` warmed
     calls, and ``<prefix>host_ms``, the host-clock time per call to issue
     ``host_iters`` of them (no synchronize inside). Back-to-back event times
-    near the host time are set by the host, not the kernel."""
+    near the host time are set by the host, not the kernel. ``device_ms`` is
+    None (not measured) when the profiler recorded no CUDA kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1046,8 +1079,13 @@ def _split_time(prefix: str, fn, iters=20, host_iters=200) -> dict:
             fn()
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    return {f"{prefix}device_ms": sum(e.self_device_time_total for e in kernels) / iters / 1e3,
+    device_us = sum(e.self_device_time_total for e in kernels)
+    return {f"{prefix}device_ms": device_us / iters / 1e3 if device_us > 0 else None,
             f"{prefix}host_ms": 1e3 * host_s / host_iters}
+
+
+def _ms(x) -> str:
+    return "not measured" if x is None else f"{x:.4f}"
 
 
 def _bound(moved_bytes, flops):
@@ -1143,8 +1181,8 @@ def time_sal_fused_choice() -> dict:
     row["faster"] = "on" if row["on_ms_per_batch"] <= row["off_ms_per_batch"] else "off"
     row["default"] = "on" if attn_mod.SAL_FUSED_ENABLED else "off"
     log(f"phase 6b: SAL_FUSED per SaL-base batch: on {row['on_ms_per_batch']:.4f} ms "
-        f"(device {row['on_device_ms']:.4f}), off {row['off_ms_per_batch']:.4f} ms (device "
-        f"{row['off_device_ms']:.4f}, of it the materialization {row['materialize_ms']:.4f} ms "
+        f"(device {_ms(row['on_device_ms'])}), off {row['off_ms_per_batch']:.4f} ms (device "
+        f"{_ms(row['off_device_ms'])}, of it the materialization {row['materialize_ms']:.4f} ms "
         f"by events); faster: {row['faster']}; the port's default: {row['default']}; "
         f"{json.dumps(row)}")
     return row
@@ -2301,14 +2339,14 @@ def sampling_phase(paths, root) -> dict:
 # -- phases 14-17: the online serving engines ----------------------------------
 
 FUTURE_TIMEOUT = 300  # seconds a request may take before the run fails
-FLOOD_REQUESTS = 256
+FLOOD_REQUESTS = 128
 CLIENTS = 8
 LONE_REQUESTS = 16
 BUCKETS = [1, 4, BATCH]
 BUSY_REQUESTS = 64  # the flood window the profiler traces
 CONT_REQUESTS = 128
 # phase 15's grid: decode steps a dispatch x rows a prefill, at BATCH slots
-CONT_GRID = [(h, c) for h in (4, 8, 16) for c in (8, 16)]
+CONT_GRID = [(h, 16) for h in (4, 8, 16)]
 STALL_TIMEOUT_S = 2.0
 
 
@@ -3421,6 +3459,426 @@ def vit_cache_phase(root, encode_step) -> dict:
     return out
 
 
+# -- phases 23-25: the A12 knobs, the kernels at TP head slices, the mesh --------------
+
+MESH_BATCH = 4  # phase 25's f32 steps, as 7b's
+# phase 25 cuts depth, not width: 4 ViT, 4 encoder and 4 decoder layers (the
+# spawned processes each build, step and checkpoint the model)
+MESH_LAYERS = 4
+MESH_ANSWER = 8  # its greedy and beam rows
+
+
+def _knob_steps(ex, batches, workers: int) -> tuple:
+    """``len(batches)`` train steps from the executor's initial masters
+    (reloaded, optimizer state and step reset) through ``_maybe_prefetch``
+    at ``workers``: (losses, ms a step)."""
+    ex.load_params({n: t.clone() for n, t in ex._knob_start.items()})  # masters alias them
+    ex.state.step = 0
+    ex.config["NUMWORKERS"] = workers
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [float(ex.train_step(b)) for b, _ in ex._maybe_prefetch(iter(batches))]
+    torch.cuda.synchronize()
+    return losses, 1e3 * (time.perf_counter() - t0) / len(batches)
+
+
+def knobs_phase(paths, root) -> dict:
+    """Phase 23: FEATURE_CACHE, PROFILE_DIR and DEBUG_NANS on full-width
+    LaTr-base (phase 7's config, bf16, dropout 0.1); NUMWORKERS is
+    :func:`numworkers_phase`."""
+    from phoneme_vqa_torch.data.latr import LaTrDataset
+    from phoneme_vqa_torch.utils import profiling
+
+    phase = "phase 23"
+    out = {}
+    ex = LaTrExecutor(latr_train_config(paths, os.path.join(root, "knobs"), SAVE=False),
+                      "train", device=DEVICE)
+    c = ex.config
+    rows = synthetic.read_qa_csv(paths["train"])
+    store = ex._adapt_frames()[0]
+    kw = dict(max_ocr_element=c.max_ocr_element, max_ocr_length=c.max_ocr_length,
+              max_input_length=c.max_q_length, max_output_length=c.max_a_length)
+    cache = os.path.join(root, "feature_cache")
+    seconds = []
+    for _ in range(2):  # a miss (featurize + write), then a hit (memory-mapped load)
+        t0 = time.perf_counter()
+        cached = LaTrDataset(rows, store, ex.tokenizer, c.base_img_path, cache_dir=cache,
+                             **kw).dataset
+        seconds.append(time.perf_counter() - t0)
+    if not all(isinstance(a, np.memmap) for a in cached.arrays.values()):
+        raise AssertionError(f"{phase}: the second build did not load the cache")
+    for name, array in ex.train_data.arrays.items():
+        if not np.array_equal(np.asarray(cached.arrays[name]), array):
+            raise AssertionError(f"{phase}: cached {name} != the fresh build's")
+    first = np.arange(TRAIN_BATCH)
+    with torch.no_grad():
+        fresh = ex.forward_loss(ex._to_device(ex.train_data.gather(first)))
+        hit = ex.forward_loss(ex._to_device(cached.gather(first)))
+    if not torch.equal(fresh, hit):
+        raise AssertionError(f"{phase}: first-step loss {float(hit)} from the cache != "
+                             f"{float(fresh)}")
+    out["feature_cache"] = {"rows": len(rows), "featurize_s": seconds[0], "load_s": seconds[1],
+                            "first_loss": float(fresh)}
+    log(f"{phase}: FEATURE_CACHE {len(rows)} rows: featurize + write {seconds[0]:.3f} s, "
+        f"load {seconds[1]:.3f} s; arrays equal, first-step loss bit-identical "
+        f"({float(fresh):.6f})")
+
+    ex._knob_start = {n: t.detach().clone() for n, t in ex.state.params.items()}
+    batches = list(itertools.islice(batch_iterator(ex.train_data, TRAIN_BATCH, shuffle=True,
+                                                   seed=SEED + 1, drop_last=True), 4))
+
+    # PROFILE_DIR over a 3-step epoch
+    prof = os.path.join(root, "profile")
+    marks = {}
+    ex.config["NUMWORKERS"] = 0
+    reset_launches()
+    with profiling.maybe_trace(prof, "train_epoch", cuda=DEVICE.type == "cuda"):
+        for b, _ in batches[:3]:
+            ex.train_step(b)
+        torch.cuda.synchronize()
+        marks["steps_done"] = time.perf_counter()
+    write_s = time.perf_counter() - marks["steps_done"]
+    check_launches(phase, launches(), {"flash_attention": 3 * 48, "sal_fused_attention": 0})
+    (trace,) = os.listdir(prof)
+    attn = traced_attention_kernels(os.path.join(prof, trace))
+    if attn != 3 * 48:
+        raise AssertionError(f"{phase}: the trace names the attention kernel {attn} times over "
+                             "3 steps, want 3 x 48")
+    size_mb = os.path.getsize(os.path.join(prof, trace)) / 2**20
+    out["profile_dir"] = {"trace_mb": size_mb, "write_s": write_s, "attention_events": attn}
+    log(f"{phase}: PROFILE_DIR 3 steps: trace {size_mb:.1f} MB written in {write_s:.2f} s, "
+        f"the attention kernel named {attn} times, as the wrappers counted")
+
+    # DEBUG_NANS: ms a step on against off, then a NaN in one T5 block's output
+    def steps_ms():
+        return _knob_steps(ex, batches[:1], 0)[1]
+
+    nan_ms = {"off": [], "on": []}
+    for mode in ("off", "on", "on", "off"):
+        check = profiling.NanCheck(ex.model) if mode == "on" else None
+        try:
+            nan_ms[mode].append(steps_ms())
+        finally:
+            if check is not None:
+                check.close()
+    block = f"t5.encoder.block_{T5_BASE['num_encoder_layers'] // 2}"
+
+    def inject(module, args, output):
+        output = output.clone()
+        output[0, 0, 0] = float("nan")
+        return output
+
+    handle = ex.model.get_submodule(block).register_forward_hook(inject)
+    check = profiling.NanCheck(ex.model)
+    try:
+        ex.forward_loss(ex._to_device(batches[0][0]))
+        raise AssertionError(f"{phase}: DEBUG_NANS let a NaN in {block}'s output pass")
+    except FloatingPointError as e:
+        if f"of {block} " not in str(e):
+            raise AssertionError(f"{phase}: DEBUG_NANS named another module: {e}") from e
+        named = str(e)
+    finally:
+        check.close()
+        handle.remove()
+    out["debug_nans"] = {"ms_per_step_off": nan_ms["off"], "ms_per_step_on": nan_ms["on"],
+                         "raised": named}
+    log(f"{phase}: DEBUG_NANS off {[round(x, 1) for x in nan_ms['off']]} ms a step, on "
+        f"{[round(x, 1) for x in nan_ms['on']]} (off, on, on, off); an injected NaN raised "
+        f"FloatingPointError: {named}")
+    del ex
+    torch.cuda.empty_cache()
+    return out
+
+
+def numworkers_phase(paths, root) -> dict:
+    """Phase 23's NUMWORKERS, 0 against 2 on full-width LaTr-base (phase 7's
+    config), late in the run: a profiler session after its prefetch runs
+    may record no CUDA kernel, and one such session is logged."""
+    phase = "phase 23"
+    out = {}
+    ex = LaTrExecutor(latr_train_config(paths, os.path.join(root, "workers"), SAVE=False),
+                      "train", device=DEVICE)
+    ex._knob_start = {n: t.detach().clone() for n, t in ex.state.params.items()}
+    batches = list(itertools.islice(batch_iterator(ex.train_data, TRAIN_BATCH, shuffle=True,
+                                                   seed=SEED + 1, drop_last=True), 4))
+    # 0 against 2, interleaved, from the same start
+    runs = {0: [], 2: []}
+    _knob_steps(ex, batches, 0)  # warm-up: the first steps after a reload pay allocations
+    for workers in (0, 2, 2, 0):
+        runs[workers].append(_knob_steps(ex, batches, workers))
+    losses = {w: [r[0] for r in runs[w]] for w in runs}
+    if any(l != losses[0][0] for w in losses for l in losses[w]):
+        raise AssertionError(f"{phase}: NUMWORKERS losses differ: {losses}")
+    ms = {w: [r[1] for r in runs[w]] for w in runs}
+    out["numworkers"] = {"ms_per_step_0": ms[0], "ms_per_step_2": ms[2], "losses": losses[0][0]}
+    log(f"{phase}: NUMWORKERS 0 {[round(x, 1) for x in ms[0]]} ms a step, 2 "
+        f"{[round(x, 1) for x in ms[2]]} (0, 2, 2, 0); 4 losses bit-identical")
+    # an observation, not a gate: whether a profiler session right after the
+    # prefetch threads records the attention kernel (None: no CUDA kernel)
+    q, k, v, bias, mask, causal, scale = serving_shapes()[1]
+    after = _split_time("", lambda: fa.fused_attention(q, k, v, bias, mask, causal, scale))
+    out["profiler_after_prefetch_device_ms"] = after["device_ms"]
+    log(f"{phase}: a profiler session after the NUMWORKERS runs: attention kernel device "
+        f"ms {_ms(after['device_ms'])}")
+    del ex
+    torch.cuda.empty_cache()
+    return out
+
+
+def traced_attention_kernels(path: str) -> int:
+    """The device kernels in a Chrome trace whose name is the attention
+    kernel's CUDA symbol."""
+    with open(path, encoding="utf-8") as f:
+        events = json.load(f)["traceEvents"]
+    return sum(1 for e in events
+               if e.get("cat") == "kernel" and "attn::attention_" in str(e.get("name", "")))
+
+
+def _gb(x) -> str:
+    return "not measured" if x is None else f"{x:.2f} GB"
+
+
+def _head_slices(h: int, tp: int):
+    size = h // tp
+    return [slice(r * size, (r + 1) * size) for r in range(tp)]
+
+
+def tp_slice_phase() -> dict:
+    """Phase 24: both kernels at the head slices a TP rank gives them: each
+    rank's call on its heads of the models' (B, L, H, D) storage (and its
+    slice of the bias / the SaL tables) equals the full call's heads bit for
+    bit; time, device time, bound and SDPA on the slice beside the full
+    call's."""
+    phase = "phase 24"
+    rows = []
+    for name, (q, k, v, bias, mask, causal, scale) in zip(("vit", "t5_encoder"),
+                                                          serving_shapes()):
+        full = fa.fused_attention(q, k, v, bias, mask, causal, scale)
+        for tp in (2, 4):
+            for heads in _head_slices(q.shape[1], tp):
+                part = fa.fused_attention(q[:, heads], k[:, heads], v[:, heads],
+                                          None if bias is None else bias[:, heads], mask,
+                                          causal, scale)
+                torch.cuda.synchronize()
+                if not torch.equal(part, full[:, heads]):
+                    raise AssertionError(f"{phase}: {name} tp={tp} heads {heads} != the full "
+                                         "call's slice")
+            heads = _head_slices(q.shape[1], tp)[0]
+            args = (q[:, heads], k[:, heads], v[:, heads],
+                    None if bias is None else bias[:, heads], mask, causal, scale)
+            moved, flops = _qkvo_bytes_flops(args[0], args[1])
+            moved += sum(0 if t is None else t.numel() * 4 for t in (args[3], mask))
+            bound_ms, bound_by = _bound(moved, flops)
+            kernel = lambda: fa.fused_attention(*args)
+            library = _sdpa(*args[:5], scale)
+            plain = lambda: attn_mod.reference_attention(*args)
+            row = {"shape": f"{name}_tp{tp}", "q": list(args[0].shape), **_time("ms", kernel),
+                   **_time("plain_ms", plain), **_time("library_ms", library),
+                   **_split_time("", kernel), **_split_time("library_", library),
+                   "bound_ms": bound_ms, "bound_by": bound_by}
+            rows.append(row)
+            log(f"{phase}: {json.dumps(row)}")
+    q, k, v, bias1d, cb, cell, mask = sal_serving_shape()
+    full = sfa.sal_fused_attention(q, k, v, bias1d, cb, cell, mask)
+    for tp in (2, 4):
+        for heads in _head_slices(q.shape[1], tp):
+            part = sfa.sal_fused_attention(q[:, heads], k[:, heads], v[:, heads], bias1d[heads],
+                                           cb[heads], cell, mask)
+            torch.cuda.synchronize()
+            if not torch.equal(part, full[:, heads]):
+                raise AssertionError(f"{phase}: SaL tp={tp} heads {heads} != the full call's")
+        heads = _head_slices(q.shape[1], tp)[0]
+        args = (q[:, heads], k[:, heads], v[:, heads], bias1d[heads], cb[heads], cell, mask)
+        moved, flops = _qkvo_bytes_flops(args[0], args[1])
+        moved += sum(t.numel() * t.element_size() for t in args[3:])
+        bound_ms, bound_by = _bound(moved, flops)
+        kernel = lambda: sfa.sal_fused_attention(*args)
+        library = _sdpa(*args[:3], sfa.materialize_sal_bias(*args[3:6]), mask, None)
+        plain = lambda: sfa.sal_reference_attention(*args)
+        row = {"shape": f"sal_encoder_tp{tp}", "q": list(args[0].shape), **_time("ms", kernel),
+               **_time("plain_ms", plain), **_time("library_ms", library),
+               **_split_time("", kernel), **_split_time("library_", library),
+               "library_excludes": "bias materialization", "bound_ms": bound_ms,
+               "bound_by": bound_by}
+        rows.append(row)
+        log(f"{phase}: {json.dumps(row)}")
+    log(f"{phase}: every head-sliced call (tp 2 and 4, ViT, T5 encoder, SaL) == the full "
+        "call's heads bit for bit")
+    return {"shapes": rows}
+
+
+def mesh_fixture(root):
+    """Phase 25's small LaTr fixture (8 rows; its first 4 are the gated
+    batch) and SaL fixture."""
+    latr = synthetic.make_latr_fixture(os.path.join(root, "mesh_latr"), n_images=4,
+                                       n_rows=2 * MESH_BATCH, image_hw=FULL["vit_image_size"])
+    sal = synthetic.make_sal_fixture(os.path.join(root, "mesh_sal"), n_images=4,
+                                     n_rows=2 * MESH_BATCH, n_ocr_words=SAL_OCR_ELEMENTS,
+                                     region_hidden=SAL_FULL["obj_hidden"])
+    return latr, sal
+
+
+def _one_process(ex_cls, config, steps: int, beams: int) -> dict:
+    """The reference of a mesh run: the same executor in this process, its
+    greedy and beam rows at the seeded init, then ``steps`` steps on the
+    same first rows; the masters after the first."""
+    from phoneme_vqa_torch.dryrun import _beam_rows
+
+    ex = ex_cls(config, "train", device=DEVICE)
+    # decoded at the seeded init, as run_mesh decodes before its steps
+    tb = ex._device_batch(ex.val_data.gather(np.arange(int(config.EVAL_BATCH_SIZE))))
+    with torch.inference_mode():
+        rows, seen = greedy_recorded(ex.model, tb, int(config.max_eval_length))
+    beam = _beam_rows(ex, int(config.max_eval_length), beams) if beams else None
+    batch = ex.train_data.gather(np.arange(int(config.TRAIN_BATCH_SIZE)))
+    losses, after_first = [], None
+    for i in range(steps):
+        losses.append(float(ex.train_step(batch)))
+        if i == 0:
+            after_first = {n: t.detach().to("cpu", copy=True) for n, t in ex.state.params.items()}
+    return {"ex": ex, "losses": losses, "params": after_first, "rows": rows.tolist(),
+            "seen": seen, "beam_rows": beam}
+
+
+def _gate_mesh(phase, what, record, ref, lr) -> dict:
+    """A mesh run against one process: the first loss within LOSS_RTOL,
+    every master within 2 lr (a first adam step's bound where a gradient
+    at rounding level flips its sign) plus the f32 rounding of the master
+    itself, all but 0.1 % within rtol 1e-4 / atol 2e-5, greedy rows
+    identical but at reference top-2 ties within TIE_MARGIN, beam rows
+    identical."""
+    loss_gap = abs(record["losses"][0] - ref["losses"][0]) / abs(ref["losses"][0])
+    if loss_gap > LOSS_RTOL:
+        raise AssertionError(f"{phase} {what}: loss {record['losses'][0]} vs one process "
+                             f"{ref['losses'][0]}")
+    out = {"loss": record["losses"][0], "loss_one_process": ref["losses"][0],
+           "loss_rel_gap": loss_gap}
+    if "checkpoint" in record:
+        saved = torch.load(record["checkpoint"], map_location="cpu", weights_only=True)
+        worst, worst_excess, n_far, n_all = 0.0, 0.0, 0, 0
+        ulp = torch.finfo(torch.float32).eps
+        for name, want in ref["params"].items():
+            want = want.detach().float()
+            gap = (saved["params"][name].detach().float() - want).abs()
+            worst = max(worst, float(gap.max()))
+            worst_excess = max(worst_excess, float((gap - 2 * lr - 2 * ulp * want.abs()).max()))
+            n_far += int((gap > 2e-5 + 1e-4 * want.abs()).sum())
+            n_all += gap.numel()
+        if worst_excess > 0 or n_far > 1e-3 * n_all:
+            raise AssertionError(f"{phase} {what}: masters part by up to {worst} (2 lr = "
+                                 f"{2 * lr}, past it by {worst_excess}), {n_far}/{n_all} past "
+                                 "rtol 1e-4 / atol 2e-5")
+        out.update(master_max_gap=worst, masters_past_tol=n_far, masters=n_all, lr=lr)
+        if not (record["restored_bit_for_bit"] and record["restored_opt_bit_for_bit"]):
+            raise AssertionError(f"{phase} {what}: the mesh checkpoint did not restore on the "
+                                 "mesh bit for bit")
+        ex = ref["ex"]
+        if not ex._try_full_resume(saved):
+            raise AssertionError(f"{phase} {what}: the mesh checkpoint does not fit one process")
+        for name, value in saved["params"].items():
+            if not torch.equal(ex.state.params[name].cpu(), value):
+                raise AssertionError(f"{phase} {what}: {name} restored in one process != file")
+        out["checkpoint_restores_in_one_process"] = True
+    if ref["rows"] is not None:
+        parted, margin = tie_parted(phase, record["rows"], ref["rows"], ref["seen"])
+        out.update(greedy_rows_parted=parted, greedy_parted_margin=margin)
+    if ref["beam_rows"] is not None and record["beam_rows"] != ref["beam_rows"]:
+        raise AssertionError(f"{phase} {what}: beam rows differ from one process's")
+    return out
+
+
+def mesh_phase(root) -> dict:
+    """Phase 25: the mesh lifecycle at full width, MESH_LAYERS deep, through
+    ``phoneme_vqa_torch.dryrun.run_mesh`` (f32, dropout 0, batch 4): (a) one
+    NCCL rank a card with MESH {data: -1}; (b) two gloo processes on one card
+    with MESH {model: 2}, {data: 2} and {data: 2, zero1: true} (the gather
+    and reduce-scatter as gloo all-reduces; with 2 or 4 cards, NCCL across them
+    at {model: 2} and {data: 2, model: 2, zero1: true} too); and a SaL-base
+    step at {model: 2} (the head-sliced 2D tables). Each against the same
+    steps in this process."""
+    from phoneme_vqa_torch.dryrun import run_mesh
+
+    phase = "phase 25"
+    latr_paths, sal_paths = mesh_fixture(root)
+    keys = dict(DTYPE="float32", dropout_rate=0.0, TRAIN_BATCH_SIZE=MESH_BATCH,
+                EVAL_BATCH_SIZE=2, max_eval_length=MESH_ANSWER, num_encoder_layers=MESH_LAYERS,
+                num_t5_decoder_layers=MESH_LAYERS, vit_num_layers=MESH_LAYERS)
+    steps = 3
+    latr = lambda name, **over: latr_train_config(latr_paths, os.path.join(root, name),
+                                                  **keys, **over)
+    ref = _one_process(LaTrExecutor, latr("mesh_ref"), steps, beams=2)
+    lr = float(ref["ex"]._lr_schedule(0))
+    out = {}
+    cards = torch.cuda.device_count()
+    first = "nccl" if DEVICE.type == "cuda" else "gloo"
+    # (name, title, MESH, processes, backend, beam search); a machine with
+    # more cards also runs NCCL meshes across them
+    runs = [("a", f"{cards} {first} rank(s), data {cards}", {"data": -1}, cards, first, False)]
+    if first == "nccl" and cards >= 2:
+        runs.append(("nccl_model", "2 NCCL ranks on 2 cards, model 2", {"model": 2}, 2, "nccl",
+                     True))
+    if first == "nccl" and cards >= 4:
+        runs.append(("nccl_data_model_zero1", "4 NCCL ranks on 4 cards, data 2 x model 2, "
+                     "ZeRO-1", {"data": 2, "model": 2, "zero1": True}, 4, "nccl", False))
+    if len(runs) == 1:
+        log(f"{phase}: {cards} card(s): the NCCL meshes across 2 and 4 cards need as many")
+    runs += [("b_model", "2 gloo processes on one card, model 2", {"model": 2}, 2, "gloo", True),
+             ("b_data", "2 gloo processes on one card, data 2", {"data": 2}, 2, "gloo", False),
+             ("b_data_zero1", "2 gloo processes on one card, data 2, ZeRO-1",
+              {"data": 2, "zero1": True}, 2, "gloo", False)]
+    for key, what, mesh, world, backend, beam in runs:
+        t0 = time.perf_counter()
+        record = run_mesh(dict(latr(f"mesh_{key}", MESH=mesh)), world, device=DEVICE.type,
+                          backend=backend, steps=steps, beams=2 if beam else 0, timeout=600)
+        res = _gate_mesh(phase, what, record, dict(ref, beam_rows=ref["beam_rows"] if beam
+                                                   else None), lr)
+        for r in record["ranks"]:  # every ViT, encoder, decoder self and cross layer
+            check_launches(f"{phase} {what} rank {r['rank']}", r["launches_per_step"],
+                           {"flash_attention": 4 * MESH_LAYERS, "sal_fused_attention": 0})
+        res.update(what=what, seconds=time.perf_counter() - t0, ranks=record["ranks"])
+        out[key] = res
+        note = (" (a world of one: the same DeviceMesh, plan and optimizer path, every "
+                "collective over one rank)" if world == 1 else "")
+        log(f"{phase}: LaTr-base {what}{note}: loss {res['loss']:.6f} vs "
+            f"{res['loss_one_process']:.6f}; masters within {res['master_max_gap']:.2e}, "
+            "checkpoint mesh -> mesh and -> one process bit for bit; "
+            + ("beam rows identical; " if beam else "")
+            + f"greedy rows parted {res['greedy_rows_parted']} (margin {res['greedy_parted_margin']:.2e}); "
+            + "; ".join(f"rank {r['rank']} ({r['backend']}): {np.median(r['ms_per_step']):.1f} ms "
+                        f"a step, peak {_gb(r['peak_gb'])}, optimizer state "
+                        f"{r['opt_state_bytes'] / 1e9:.3f} GB, launches {r['launches_per_step']}"
+                        for r in record["ranks"])
+            + f" ({res['seconds']:.1f} s)")
+    del ref
+    torch.cuda.empty_cache()
+    sal_cfg = phoneme_train_config(sal_paths, os.path.join(root, "mesh_sal_ref"),
+                                   EXECUTOR="SaL_Executor", MODEL_CLASS="SaL",
+                                   MODEL_MOD_CONFIG_CLASS="SaL_config", **keys)
+    sal_ref = _one_process(SaLExecutor, sal_cfg, 1, beams=0)
+    t0 = time.perf_counter()
+    record = run_mesh(dict(sal_cfg, SAVE_PATH=os.path.join(root, "mesh_sal"),
+                           MESH={"model": 2}), 2, device=DEVICE.type, backend="gloo", steps=1,
+                      beams=0, checkpoint=True, timeout=600)
+    res = _gate_mesh(phase, "SaL-base, model 2", record,
+                     dict(sal_ref, rows=None), float(sal_ref["ex"]._lr_schedule(0)))
+    per_rank = record["ranks"][0]["launches_per_step"]
+    # the encoder's layers through the SaL kernel, the decoder's self and
+    # cross layers through the attention kernel, at 6 heads a call
+    check_launches(phase, per_rank, {"flash_attention": 2 * MESH_LAYERS,
+                                     "sal_fused_attention": MESH_LAYERS})
+    res.update(seconds=time.perf_counter() - t0, ranks=record["ranks"])
+    out["sal_model2"] = res
+    log(f"{phase}: SaL-base model 2 (gloo, one card): loss {res['loss']:.6f} vs "
+        f"{res['loss_one_process']:.6f}, masters within {res['master_max_gap']:.2e}, "
+        f"launches a rank a step {per_rank} (6 heads a call, {MESH_LAYERS} layers); "
+        + "; ".join(f"rank {r['rank']}: peak {_gb(r['peak_gb'])}, optimizer state "
+                    f"{r['opt_state_bytes'] / 1e9:.3f} GB" for r in record["ranks"])
+        + f" ({res['seconds']:.1f} s)")
+    del sal_ref
+    torch.cuda.empty_cache()
+    return out
+
+
 def bf16_spills(logs: dict) -> list:
     """[kernel, entry, report] for every bf16 entry (attention_tma_kernel)
     whose -Xptxas -v report shows spill stores or loads."""
@@ -3452,6 +3910,14 @@ def main() -> None:
     if spills:
         raise AssertionError(f"phase 2: bf16 (TMA + wgmma) kernels spill: {spills}")
     log("phase 2: no bf16 (TMA + wgmma) kernel spills")
+
+    # phases 24 and 23 (but NUMWORKERS) first: later in a long process
+    # torch.profiler drops CUDA kernel records (phase 24's device times
+    # came out empty and phase 23's trace held 142-143 of its 144 launches
+    # there; a fresh process held all: PERF.md §7)
+    tp_slices = tp_slice_phase()
+    with tempfile.TemporaryDirectory() as early:
+        knobs = knobs_phase(train_fixture(early), early)
 
     worst = check_kernel_grid()
     sal_worst = check_sal_kernel_grid()
@@ -3652,6 +4118,11 @@ def main() -> None:
                                  {"flash_attention": 2 * n_dec, "sal_fused_attention": n_t5}),
             "vit_cache": vit_cache_phase(root, encode_step)}
 
+        # phase 23's NUMWORKERS (24 and the rest of 23 ran after phase 2),
+        # then 25: training over a (data, model) mesh
+        knobs.update(numworkers_phase(paths, root))
+        across = {"knobs": knobs, "tp_slices": tp_slices, "mesh": mesh_phase(root)}
+
     per_batch = lambda key: 12 * shapes[0][key] + 12 * shapes[1][key]
     per_step = lambda key: 12 * sum(r[key] for r in train_shapes)
     # a PhonemeLaTr (or CustomizedLaTr, CustomizedPreSTU, PhonemePreSTU) step:
@@ -3752,6 +4223,12 @@ def main() -> None:
             finetune["remat"]["sal"]["launches_on"]["flash_attention"],
         "launches_per_eval_batch_vit_cache":
             finetune["vit_cache"]["cached"]["launches_per_batch"]["flash_attention"],
+        # across cards (phases 24-25): the head-sliced calls a TP rank makes,
+        # and the launches a rank a step of the model-2 mesh (counted)
+        "tp_head_slice_shapes": [r for r in across["tp_slices"]["shapes"]
+                                 if not r["shape"].startswith("sal")],
+        "launches_per_step_per_rank_model2":
+            across["mesh"]["b_model"]["ranks"][0]["launches_per_step"]["flash_attention"],
     }, {
         "name": "sal_fused_attention",
         "route": "cuda",
@@ -3787,6 +4264,10 @@ def main() -> None:
         "launches_per_batch_converted_phoneme_sal": T5_BASE["num_encoder_layers"],
         "launches_per_train_step_remat_sal":
             finetune["remat"]["sal"]["launches_on"]["sal_fused_attention"],
+        "tp_head_slice_shapes": [r for r in across["tp_slices"]["shapes"]
+                                 if r["shape"].startswith("sal")],
+        "launches_per_step_per_rank_model2_sal":
+            across["mesh"]["sal_model2"]["ranks"][0]["launches_per_step"]["sal_fused_attention"],
     }]
     log(json.dumps({"serving": {"latr": served, "sal": sal_served, "phoneme_sal": psal_served,
                                 "phoneme_latr": platr_served, "prestu": prestu_served},
@@ -3798,7 +4279,7 @@ def main() -> None:
                               "phoneme_latr_f32_step": platr_f32, "steps_9c": steps_9c,
                               "prestu_f32_step": prestu_f32},
                     "decode_variants": variants, "serving_engines": engines,
-                    "finetune": finetune, "card": card}))
+                    "finetune": finetune, "across_cards": across, "card": card}))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card_line())

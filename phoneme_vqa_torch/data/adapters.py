@@ -10,6 +10,10 @@ A directory of per-image pickled ``.npy`` dicts becomes a store keyed by
 * object files hold ``object_list`` + ``region_boxes`` + the image's own
   ``height``/``width``; the object store is ``{image_id: (labels, boxes)}``,
   boxes divided by that width/height and scaled by (w_scale, h_scale).
+
+With ``cache_dir`` (``FEATURE_CACHE``) an adapted store is kept on disk
+per (directory fingerprint, adapter, scales) and read back on the next
+run (``feature_cache.cached_adapt``).
 """
 
 from __future__ import annotations
@@ -18,6 +22,8 @@ import os
 from typing import Dict, List, Tuple
 
 import numpy as np
+
+from .feature_cache import cached_adapt
 
 OcrStore = Dict[float, Tuple[List[str], List[List[float]]]]
 ObjStore = OcrStore  # {image_id: (labels, boxes)}
@@ -41,7 +47,19 @@ def _scale_boxes(boxes, width: float, height: float, w_scale: float, h_scale: fl
     return out
 
 
-def textlayout_ocr_adapt(ocr_root: str, h_scale: float = 1000, w_scale: float = 1000) -> OcrStore:
+def textlayout_ocr_adapt(ocr_root: str, h_scale: float = 1000, w_scale: float = 1000,
+                         cache_dir=None) -> OcrStore:
+    return cached_adapt(ocr_root, cache_dir, f"ocr|{h_scale}|{w_scale}",
+                        lambda: _adapt_ocr(ocr_root, h_scale, w_scale))
+
+
+def textlayout_obj_adapt(obj_root: str, h_scale: float = 1000, w_scale: float = 1000,
+                         cache_dir=None) -> ObjStore:
+    return cached_adapt(obj_root, cache_dir, f"obj|{h_scale}|{w_scale}",
+                        lambda: _adapt_obj(obj_root, h_scale, w_scale))
+
+
+def _adapt_ocr(ocr_root: str, h_scale: float, w_scale: float) -> OcrStore:
     store: OcrStore = {}
     for fname in os.listdir(ocr_root):
         record = _load_npy_dict(os.path.join(ocr_root, fname))
@@ -52,7 +70,7 @@ def textlayout_ocr_adapt(ocr_root: str, h_scale: float = 1000, w_scale: float = 
     return store
 
 
-def textlayout_obj_adapt(obj_root: str, h_scale: float = 1000, w_scale: float = 1000) -> ObjStore:
+def _adapt_obj(obj_root: str, h_scale: float, w_scale: float) -> ObjStore:
     store: ObjStore = {}
     for fname in os.listdir(obj_root):
         record = _load_npy_dict(os.path.join(obj_root, fname))

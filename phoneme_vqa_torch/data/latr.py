@@ -15,6 +15,9 @@ arrays are element-equal to the JAX package's.
 * the OCR stream is closed with an EOS token/box and padded with pad
   token/zero boxes to ``max_ocr_length``
 * pixel values load lazily per batch from ``{base_img_path}/{id}.npy``
+* ``cache_dir`` (``FEATURE_CACHE``) keeps the packed arrays on disk
+  (``feature_cache.get_or_build``), keyed by the rows' content, the
+  tokenizer, ``cache_tag`` (the executor's answer encoder) and the lengths
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from typing import List, Sequence
 
 import numpy as np
 
+from . import feature_cache
 from .loader import ArrayDataset, make_image_loader
 
 PAD_TOKEN_BOX = [0, 0, 0, 0, 0, 0]
@@ -106,14 +110,25 @@ class LaTrDataset:
         max_input_length: int = 30,
         max_output_length: int = 20,
         answer_encoder=None,
+        cache_dir=None,
+        cache_tag: str = "",
     ):
         self.tokenizer = tokenizer
         rows = join_ocr(qa_rows, ocr_store)
-        arrays = self._featurize(
-            rows, tokenizer, max_ocr_element, max_ocr_length,
-            max_input_length, max_output_length, answer_encoder,
-        )
-        image_ids = [r["image_id"] for r in rows]
+        parts = {
+            "cls": type(self).__name__,
+            "rows": feature_cache.rows_fingerprint(rows),
+            "tok": feature_cache.tokenizer_tag(tokenizer),
+            "tag": cache_tag,
+            "max_ocr_element": max_ocr_element,
+            "max_ocr_length": max_ocr_length,
+            "max_input_length": max_input_length,
+            "max_output_length": max_output_length,
+        }
+        arrays, image_ids = feature_cache.get_or_build(cache_dir, parts, lambda: (
+            self._featurize(rows, tokenizer, max_ocr_element, max_ocr_length,
+                            max_input_length, max_output_length, answer_encoder),
+            [r["image_id"] for r in rows]))
         self.dataset = ArrayDataset(
             arrays,
             image_ids=image_ids,

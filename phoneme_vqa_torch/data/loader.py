@@ -6,12 +6,20 @@ slicing (counterpart of ``phoneme_vqa_tpu/data/loader.py``):
 * train: shuffled epochs (``np.random.RandomState(seed).permutation``, the
   JAX package's order for the same seed), final partial batch dropped;
 * eval/predict: in order, the final partial batch padded up to full size
-  with a ``n_valid`` count, so every batch has one shape.
+  with a ``n_valid`` count, so every batch has one shape;
+* a data-parallel mesh: ``shard`` / ``num_shards`` take each data rank's
+  interleaved rows (``order[shard::num_shards]``), so one step's rows over
+  all ranks are one process's batch;
+* :func:`prefetch` (``NUMWORKERS``) assembles batches on a background
+  thread. Unlike the JAX package's, whose consumer ends the epoch quietly
+  when the producer raises, it re-raises the producer's exception.
 """
 
 from __future__ import annotations
 
 import os
+import queue
+import threading
 from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
@@ -51,13 +59,18 @@ def batch_iterator(
     seed: int = 0,
     drop_last: bool = False,
     pad_final: bool = True,
+    shard: int = 0,
+    num_shards: int = 1,
 ) -> Iterator[Tuple[Dict[str, np.ndarray], int]]:
     """Yields (batch dict, n_valid). Batches always have ``batch_size`` rows
     when ``pad_final`` (the final short batch repeats its last row); with
-    ``drop_last`` the final short batch is not yielded."""
+    ``drop_last`` the final short batch is not yielded. ``shard`` /
+    ``num_shards`` keep every ``num_shards``-th row of the order from row
+    ``shard`` on."""
     n = len(dataset)
     order = np.random.RandomState(seed).permutation(n) if shuffle else np.arange(n)
-    for start in range(0, n, batch_size):
+    order = order[shard::num_shards]
+    for start in range(0, len(order), batch_size):
         idx = order[start : start + batch_size]
         n_valid = len(idx)
         if n_valid < batch_size:
@@ -70,6 +83,50 @@ def batch_iterator(
 
 def num_batches(n_rows: int, batch_size: int, drop_last: bool = False) -> int:
     return n_rows // batch_size if drop_last else -(-n_rows // batch_size)
+
+
+def prefetch(iterator, depth: int = 2):
+    """Yields ``iterator``'s items, produced up to ``depth`` ahead on a
+    background thread (``NUMWORKERS``: the host assembles the next batch
+    while the card runs this one). An exception in the producer is raised
+    here, at the item it failed to produce; closing the generator early
+    stops the producer."""
+    items: "queue.Queue" = queue.Queue(maxsize=depth)
+    end = object()
+    stop = threading.Event()
+
+    def put(entry) -> bool:
+        while not stop.is_set():
+            try:
+                items.put(entry, timeout=0.05)
+                return True
+            except queue.Full:
+                pass
+        return False
+
+    def produce():
+        try:
+            for item in iterator:
+                if not put((item, None)):
+                    return
+        except Exception as e:  # handed to the consumer, which raises it
+            put((end, e))
+            return
+        put((end, None))
+
+    thread = threading.Thread(target=produce, name="prefetch", daemon=True)
+    thread.start()
+    try:
+        while True:
+            item, error = items.get()
+            if item is end:
+                if error is not None:
+                    raise error
+                return
+            yield item
+    finally:
+        stop.set()
+        thread.join(timeout=30)
 
 
 def make_image_loader(base_img_path: str, image_ids) -> Callable[[np.ndarray], np.ndarray]:

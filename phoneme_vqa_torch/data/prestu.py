@@ -20,6 +20,7 @@ from typing import Sequence
 
 import numpy as np
 
+from . import feature_cache
 from .latr import encode_prefixed, join_ocr, label_array
 from .loader import ArrayDataset, make_image_loader
 
@@ -67,11 +68,24 @@ class PreSTUDataset:
         max_input_length: int = 30,
         max_output_length: int = 20,
         answer_encoder=None,
+        cache_dir=None,
+        cache_tag: str = "",
     ):
         rows = join_ocr(qa_rows, ocr_store)
-        arrays = self._featurize(rows, tokenizer, max_ocr_element, max_ocr_length,
-                                 max_input_length, max_output_length, answer_encoder)
-        image_ids = [r["image_id"] for r in rows]
+        parts = {
+            "cls": type(self).__name__,
+            "rows": feature_cache.rows_fingerprint(rows),
+            "tok": feature_cache.tokenizer_tag(tokenizer),
+            "tag": cache_tag,
+            "max_ocr_element": max_ocr_element,
+            "max_ocr_length": max_ocr_length,
+            "max_input_length": max_input_length,
+            "max_output_length": max_output_length,
+        }
+        arrays, image_ids = feature_cache.get_or_build(cache_dir, parts, lambda: (
+            self._featurize(rows, tokenizer, max_ocr_element, max_ocr_length,
+                            max_input_length, max_output_length, answer_encoder),
+            [r["image_id"] for r in rows]))
         self.dataset = ArrayDataset(
             arrays,
             image_ids=image_ids,

@@ -1,8 +1,7 @@
 """SaL featurization: question + OCR words (with context tokens and
 features) + object labels (with region features) into packed arrays.
 
-Counterpart of ``phoneme_vqa_tpu/data/sal.py`` without pandas and without
-the feature cache: QA rows are dicts with ``image_id``, ``question`` and
+Counterpart of ``phoneme_vqa_tpu/data/sal.py`` without pandas: QA rows are dicts with ``image_id``, ``question`` and
 ``answer``; the OCR and object stores are ``{image_id: (texts, boxes)}``
 (``adapters.textlayout_ocr_adapt`` / ``textlayout_obj_adapt``). The arrays
 are element-equal to the JAX package's.
@@ -17,6 +16,8 @@ are element-equal to the JAX package's.
   ``answer_encoder(answer, max_length) -> (ids, mask)`` replaces the
   answer's encoding (the custom decoders' answer tokenizers)
 * features load lazily per batch from ``{base_*_feature_path}/{image_id}.npy``
+* ``cache_dir`` (``FEATURE_CACHE``) keeps the packed arrays, the word
+  alignments included, on disk (``feature_cache.get_or_build``)
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from typing import List, Sequence
 
 import numpy as np
 
+from . import feature_cache
 from .latr import encode_prefixed
 from .loader import ArrayDataset
 
@@ -101,6 +103,8 @@ class SaLDataset:
         max_output_length: int = 128,
         context_token: str = "<c>",
         answer_encoder=None,
+        cache_dir=None,
+        cache_tag: str = "",
     ):
         self.base_ocr_feature_path = base_ocr_feature_path
         self.base_obj_feature_path = base_obj_feature_path
@@ -111,15 +115,30 @@ class SaLDataset:
         self.context_token_id = tokenizer(context_token)["input_ids"][0]
 
         rows = join_stores(qa_rows, ocr_store, obj_store)
-        arrays = self._featurize(
-            rows, tokenizer, self.context_token_id, max_ocr_element, max_ocr_length,
-            max_obj_element, max_obj_length, max_input_length, max_output_length,
-            answer_encoder,
-        )
-        # subword -> word alignment for the lazy feature gathers (-1 = no word)
-        self._ocr_word_ids = arrays.pop("_ocr_word_ids")
-        self._obj_word_ids = arrays.pop("_obj_word_ids")
-        self._image_ids = [r["image_id"] for r in rows]
+        parts = {
+            "cls": type(self).__name__,
+            "rows": feature_cache.rows_fingerprint(rows),
+            "tok": feature_cache.tokenizer_tag(tokenizer),
+            "tag": cache_tag,
+            "context_token": context_token,
+            "max_ocr_element": max_ocr_element,
+            "max_ocr_length": max_ocr_length,
+            "max_obj_element": max_obj_element,
+            "max_obj_length": max_obj_length,
+            "max_input_length": max_input_length,
+            "max_output_length": max_output_length,
+        }
+        arrays, image_ids = feature_cache.get_or_build(cache_dir, parts, lambda: (
+            self._featurize(rows, tokenizer, self.context_token_id, max_ocr_element,
+                            max_ocr_length, max_obj_element, max_obj_length, max_input_length,
+                            max_output_length, answer_encoder),
+            [r["image_id"] for r in rows]))
+        arrays = dict(arrays)
+        # subword -> word alignment for the lazy feature gathers (-1 = no
+        # word), fixed-shape arrays so they cache like the others
+        self._ocr_word_ids = np.asarray(arrays.pop("_ocr_word_ids"))
+        self._obj_word_ids = np.asarray(arrays.pop("_obj_word_ids"))
+        self._image_ids = image_ids
         self.dataset = ArrayDataset(
             arrays,
             image_ids=self._image_ids,

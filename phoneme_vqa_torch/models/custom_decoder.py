@@ -82,13 +82,22 @@ class MHA(nn.Module):
     def __init__(self, cfg: CustomDecoderConfig, device=None):
         super().__init__()
         self.num_heads = cfg.num_heads
-        self.scale = (cfg.d_model // cfg.num_heads) ** -0.5
+        self.head_dim = cfg.d_model // cfg.num_heads
+        self.scale = self.head_dim ** -0.5
         self.q, self.k, self.v, self.out = (_dense(cfg.d_model, cfg.d_model, cfg, device)
                                             for _ in range(4))
 
+    def tp_layout(self):
+        """``parallel/mesh.py: tp_plan``: heads split over ``tp``."""
+        return ("q", "k", "v"), ("out",), self.num_heads
+
+    @property
+    def local_heads(self) -> int:
+        return self.q.out_features // self.head_dim
+
     def _split(self, x: torch.Tensor) -> torch.Tensor:  # (B, L, H*D) -> (B, H, L, D)
         b, l, _ = x.shape
-        return x.view(b, l, self.num_heads, -1).transpose(1, 2)
+        return x.view(b, l, -1, self.head_dim).transpose(1, 2)
 
     @staticmethod
     def _merge(x: torch.Tensor) -> torch.Tensor:  # (B, H, L, D) -> (B, L, H*D)
@@ -147,9 +156,14 @@ class DecoderLayer(nn.Module):
         self.fc1 = _dense(cfg.d_model, cfg.d_ff, cfg, device)
         self.fc2 = _dense(cfg.d_ff, cfg.d_model, cfg, device)
         self.drop = Dropout(cfg.dropout_rate, rng or DropoutRNG())
+        self.d_ff = cfg.d_ff
+        self.width_shard = None  # this rank's part of d_ff under TP (``parallelize_``)
+
+    def tp_layout(self):
+        return ("fc1",), ("fc2",), self.d_ff
 
     def _ffn(self, x):
-        return self.fc2(self.drop(F.relu(self.fc1(x))))
+        return self.fc2(self.drop(F.relu(self.fc1(x)), self.width_shard))
 
     def forward(self, x, memory, memory_mask=None, tgt_keep_mask=None):
         drop = self.drop
@@ -227,7 +241,8 @@ class DecoderStack:
         cross-attention K/V."""
         c = self.cfg
         memory = memory.to(c.dtype)
-        shape = (c.num_layers, memory.shape[0], c.num_heads, max_len, c.d_model // c.num_heads)
+        attn = self.layers[0].self_attn
+        shape = (c.num_layers, memory.shape[0], attn.local_heads, max_len, attn.head_dim)
         kv = [layer.cross_attn.project_kv(memory) for layer in self.layers]
         return {
             "k": torch.zeros(shape, dtype=c.dtype, device=memory.device),

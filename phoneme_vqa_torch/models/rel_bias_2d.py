@@ -24,6 +24,7 @@ from torch import nn
 
 from ..ops.rel_bias import relative_position_bucket
 from ..ops.sal_fused_attention import SENTINEL, FusedSalBias
+from ..parallel.tensor_parallel import head_slice
 
 GRID = 11
 
@@ -51,10 +52,14 @@ class Sal2DPositionBias(nn.Module):
         self.max_distance_scp = max_distance_scp
         self.rel1d = nn.Embedding(num_buckets, num_heads, device=device, dtype=torch.float32)
         self.scp = nn.Embedding(num_buckets, num_heads, device=device, dtype=torch.float32)
+        # tensor parallelism: both tables' head slice of this rank
+        self.tp_bias_heads = num_heads
+        self.head_shard = None
 
     def forward(self, seq_len: int, ocr_coordinates: torch.Tensor, max_ques: int,
                 max_ocr: int) -> FusedSalBias:
-        """``ocr_coordinates``: (B, L_ocr, 4) floats in [0, 1]."""
+        """``ocr_coordinates``: (B, L_ocr, 4) floats in [0, 1]. Under tensor
+        parallelism ``bias1d`` and ``cell_bias`` hold this rank's heads."""
         if max_ques + max_ocr > seq_len:
             raise ValueError(f"OCR block [{max_ques}, {max_ques + max_ocr}) past {seq_len}")
         device = self.rel1d.weight.device
@@ -62,13 +67,15 @@ class Sal2DPositionBias(nn.Module):
         buckets_1d = relative_position_bucket(
             pos[None, :] - pos[:, None], True, self.num_buckets, self.max_distance_1d
         )
-        bias_1d = self.rel1d(buckets_1d).permute(2, 0, 1).contiguous()  # (H, L, L)
+        bias_1d = head_slice(self.rel1d(buckets_1d).permute(2, 0, 1), self.head_shard,
+                             0).contiguous()  # (H, L, L)
 
         table = torch.from_numpy(_grid_distance_table()).to(device)
         buckets121 = relative_position_bucket(table, True, self.num_buckets,
                                               self.max_distance_scp)
         cell_bias = self.scp(buckets121).permute(2, 0, 1)  # (H, 121, 121)
         cell_bias = nn.functional.pad(cell_bias, (0, 1, 0, 1))  # zero sentinel row/col
+        cell_bias = head_slice(cell_bias, self.head_shard, 0)
 
         coords = ocr_coordinates.float()
         cx = (coords[..., 0] + coords[..., 2]) / 2

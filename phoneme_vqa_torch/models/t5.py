@@ -19,6 +19,12 @@ activations and on every residual branch of the encoder and decoder
 blocks. It draws from the model's :class:`DropoutRNG` in training mode and
 is the identity in eval mode and in the decode steps.
 
+Under tensor parallelism (``parallel/tensor_parallel.py``) the attention
+and FFN Linears hold this rank's part: heads are read off the local width
+(``H / tp``), the relative bias gives this rank's heads, the decode cache
+holds them, and the tied head's vocab-parallel logits are gathered (or kept
+local for the training loss).
+
 Decoding uses a stacked (L, B, H, T, d) self-attention cache and
 cross-attention K/V projected once per sequence in :meth:`T5Decoder.init_cache`:
 one token a step (:meth:`T5Decoder.step`), or a window of K tokens at
@@ -33,6 +39,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -40,6 +47,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.attention import NEG_INF, dot_product_attention
 from ..ops.layout import kernel_operand
 from ..ops.rel_bias import relative_position_bucket
+from ..parallel.tensor_parallel import copy_to_tp, gather_from_tp, head_slice
 
 Cache = Dict[str, torch.Tensor]
 
@@ -78,18 +86,25 @@ class DropoutRNG:
     micro)`` for a microbatch of an accumulated step. The trainer reseeds it
     before every step, as the JAX executor folds the step (and the
     microbatch) into its dropout key (``jax.random.fold_in``); the two
-    frameworks draw different bits from the same seed."""
+    frameworks draw different bits from the same seed. On a data-parallel
+    mesh each data rank draws its own stream (``rank``); the model ranks of
+    one data rank draw the same masks, so the activations they hold in
+    common stay equal, and an activation split over them takes its slice of
+    one full-width mask (:class:`Dropout`'s ``shard``)."""
 
     def __init__(self, seed: int = 0, step: int = 0):
         self.reseed(seed, step)
 
-    def reseed(self, seed: int, step: int, micro: Optional[int] = None) -> None:
-        self.seed, self.step, self.micro = int(seed), int(step), micro
+    def reseed(self, seed: int, step: int, micro: Optional[int] = None,
+               rank: Optional[int] = None) -> None:
+        self.seed, self.step, self.micro, self.rank = int(seed), int(step), micro, rank
         self._generator = None
 
     def generator(self, device: torch.device) -> torch.Generator:
         if self._generator is None or self._generator.device != device:
             entropy = [self.seed, self.step] + ([] if self.micro is None else [int(self.micro)])
+            if self.rank is not None:
+                entropy += [2**32, int(self.rank)]
             mixed = np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0]
             self._generator = torch.Generator(device=device).manual_seed(int(mixed))
         return self._generator
@@ -127,18 +142,28 @@ def remat_block(block: nn.Module, rng: DropoutRNG, *args):
 class Dropout(nn.Module):
     """flax ``nn.Dropout``: in training mode keeps each element with
     probability ``1 - rate`` and scales it by ``1 / (1 - rate)``; the
-    identity in eval mode or at rate 0."""
+    identity in eval mode or at rate 0. For an activation whose last
+    dimension is split over the model axis, ``shard`` (a
+    ``parallel.tensor_parallel.Shard``) names this rank's part: the mask is
+    drawn at the full width and sliced, so every rank draws the same amount
+    and the masks are those of one process."""
 
     def __init__(self, rate: float, rng: DropoutRNG):
         super().__init__()
         self.rate = rate
         self.rng = rng
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, shard=None) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
         keep_prob = 1.0 - self.rate
-        keep = torch.rand(x.shape, generator=self.rng.generator(x.device), device=x.device)
+        gen = self.rng.generator(x.device)
+        if shard is None:
+            keep = torch.rand(x.shape, generator=gen, device=x.device)
+        else:
+            full = x.shape[:-1] + (shard.size * dist.get_world_size(shard.group),)
+            keep = torch.rand(full, generator=gen, device=x.device).narrow(-1, shard.start,
+                                                                          shard.size)
         return torch.where(keep < keep_prob, x / keep_prob, 0.0)
 
 
@@ -159,6 +184,7 @@ class T5FFN(nn.Module):
     def __init__(self, cfg: T5Config, device=None, rng: Optional[DropoutRNG] = None):
         super().__init__()
         self.drop = Dropout(cfg.dropout_rate, rng or DropoutRNG())
+        self.d_ff = cfg.d_ff
         self.gated = cfg.feed_forward_proj == "gated-gelu"
         if self.gated:
             self.wi_0 = _linear(cfg.d_model, cfg.d_ff, cfg, device)
@@ -166,13 +192,19 @@ class T5FFN(nn.Module):
         else:
             self.wi = _linear(cfg.d_model, cfg.d_ff, cfg, device)
         self.wo = _linear(cfg.d_ff, cfg.d_model, cfg, device)
+        self.width_shard = None  # this rank's part of d_ff under TP (``parallelize_``)
+
+    def tp_layout(self):
+        """(column-split Linears, row-split Linears, the width that must
+        divide ``tp``): ``parallel/mesh.py: tp_plan``."""
+        return (("wi_0", "wi_1") if self.gated else ("wi",)), ("wo",), self.d_ff
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.gated:
             x = F.gelu(self.wi_0(x), approximate="tanh") * self.wi_1(x)
         else:
             x = F.relu(self.wi(x))
-        return self.wo(self.drop(x))
+        return self.wo(self.drop(x, self.width_shard))
 
 
 class T5Attention(nn.Module):
@@ -185,9 +217,17 @@ class T5Attention(nn.Module):
         self.v = _linear(cfg.d_model, inner, cfg, device)
         self.o = _linear(inner, cfg.d_model, cfg, device)
 
+    def tp_layout(self):
+        return ("q", "k", "v"), ("o",), self.num_heads
+
+    @property
+    def local_heads(self) -> int:
+        """The heads this rank runs: all, or ``H / tp`` of a split module."""
+        return self.q.out_features // self.d_kv
+
     def _split(self, x: torch.Tensor) -> torch.Tensor:  # (B, L, H*D) -> (B, H, L, D)
         b, l, _ = x.shape
-        return x.view(b, l, self.num_heads, self.d_kv).transpose(1, 2)
+        return x.view(b, l, -1, self.d_kv).transpose(1, 2)
 
     @staticmethod
     def _merge(x: torch.Tensor) -> torch.Tensor:  # (B, H, L, D) -> (B, L, H*D)
@@ -308,18 +348,23 @@ class RelativeBias(nn.Module):
             cfg.relative_attention_num_buckets, cfg.num_heads, device=device,
             dtype=torch.float32,
         )
+        # tensor parallelism: the heads this rank's split attention runs
+        self.tp_bias_heads = cfg.num_heads
+        self.head_shard = None
 
     def forward(self, qlen: int, klen: int) -> torch.Tensor:
         """(1, H, qlen, klen) f32 with rows 16 bytes apart (``ops.layout.
         kernel_operand``: the storage pads klen to a multiple of 4), so the
-        attention kernels read it in place in every layer of the stack."""
+        attention kernels read it in place in every layer of the stack;
+        under tensor parallelism this rank's ``H / tp`` heads."""
         device = self.rel_embedding.weight.device
         ctx = torch.arange(qlen, device=device)[:, None]
         mem = torch.arange(klen, device=device)[None, :]
         buckets = relative_position_bucket(
             mem - ctx, self.bidirectional, self.num_buckets, self.max_distance
         )
-        return kernel_operand(self.rel_embedding(buckets).permute(2, 0, 1)[None])[0]
+        bias = head_slice(self.rel_embedding(buckets).permute(2, 0, 1)[None], self.head_shard, 1)
+        return kernel_operand(bias)[0]
 
 
 class T5EncoderBlock(nn.Module):
@@ -439,7 +484,8 @@ class T5Decoder(nn.Module):
         cross-attention K/V and the full decoder relative bias (1, H, T, T)."""
         cfg = self.cfg
         b = enc_out.shape[0]
-        shape = (cfg.num_decoder_layers, b, cfg.num_heads, max_len, cfg.d_kv)
+        heads = self.blocks[0].self_attn.local_heads
+        shape = (cfg.num_decoder_layers, b, heads, max_len, cfg.d_kv)
         kv = [block.cross_attn.project_kv(enc_out) for block in self.blocks]
         cache = {
             "k": torch.zeros(shape, dtype=cfg.dtype, device=enc_out.device),
@@ -491,7 +537,16 @@ class T5(nn.Module):
     ``decoder=False`` builds the encoder and the shared embedding only, for
     a model with its own answer decoder (``models/customized.py``): flax
     never creates the parameters of a submodule that is never called, so
-    such a model's ``t5`` tree holds ``encoder`` and ``shared`` alone."""
+    such a model's ``t5`` tree holds ``encoder`` and ``shared`` alone.
+
+    Under tensor parallelism ``shared`` may be split over its vocabulary
+    (``tp_vocab_embeddings``); the tied head then computes this rank's
+    vocabulary slice of the logits and gathers them, or, inside
+    ``parallel.tensor_parallel.local_logits`` (the training loss), returns
+    the slice."""
+
+    tp_vocab_embeddings = ("shared",)
+    local_logits = False
 
     def __init__(self, cfg: T5Config, device=None, encoder_rel_bias: bool = True,
                  decoder: bool = True):
@@ -505,6 +560,10 @@ class T5(nn.Module):
             if not cfg.tie_word_embeddings:
                 self.lm_head = _linear(cfg.d_model, cfg.vocab_size, cfg, device)
 
+    @property
+    def tied_head(self) -> bool:
+        return hasattr(self, "decoder") and self.cfg.tie_word_embeddings
+
     def embed(self, ids: torch.Tensor) -> torch.Tensor:
         return self.shared(ids).to(self.cfg.dtype)
 
@@ -517,7 +576,11 @@ class T5(nn.Module):
             # products of compute-dtype values, summed and returned in f32
             hidden = hidden * (cfg.d_model**-0.5)
             table = self.shared.weight.to(cfg.dtype).float()
-            return torch.matmul(hidden.float(), table.t())
+            shard = getattr(self.shared, "vocab_shard", None)
+            if shard is None:
+                return torch.matmul(hidden.float(), table.t())
+            logits = torch.matmul(copy_to_tp(hidden, shard.group).float(), table.t())
+            return logits if self.local_logits else gather_from_tp(logits, -1, shard.group)
         return self.lm_head(hidden).float()
 
     def decode(self, dec_ids, enc_out, enc_mask=None, dec_mask=None):

@@ -60,9 +60,14 @@ class ViTSelfAttention(nn.Module):
         dense = lambda: nn.Linear(cfg.hidden_size, cfg.hidden_size, device=device, dtype=cfg.dtype)
         self.query, self.key, self.value, self.out = dense(), dense(), dense(), dense()
 
+    def tp_layout(self):
+        """``parallel/mesh.py: tp_plan``: the projections in, the one out,
+        and the heads that must divide ``tp``."""
+        return ("query", "key", "value"), ("out",), self.num_heads
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, l, _ = x.shape
-        split = lambda t: t.view(b, l, self.num_heads, self.head_dim).transpose(1, 2)
+        split = lambda t: t.view(b, l, -1, self.head_dim).transpose(1, 2)
         out = dot_product_attention(
             split(self.query(x)), split(self.key(x)), split(self.value(x)),
             scale=self.head_dim**-0.5,
@@ -78,6 +83,10 @@ class ViTBlock(nn.Module):
         self.ln_after = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, cfg.dtype, device)
         self.fc1 = nn.Linear(cfg.hidden_size, cfg.mlp_dim, device=device, dtype=cfg.dtype)
         self.fc2 = nn.Linear(cfg.mlp_dim, cfg.hidden_size, device=device, dtype=cfg.dtype)
+        self.mlp_dim = cfg.mlp_dim
+
+    def tp_layout(self):
+        return ("fc1",), ("fc2",), self.mlp_dim
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attention(self.ln_before(x))

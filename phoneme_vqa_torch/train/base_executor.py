@@ -27,9 +27,26 @@ them: the forward and loss (:meth:`forward_loss`), ``loss.backward()``, and
 the optimizer (:meth:`apply_gradients`), which updates the f32 masters
 (``train/state.py``) and refreshes the module's bf16 compute weights from
 them. The port runs on the device the caller names (never the config's
-``DEVICE``), on one device. ``SAL_FUSED`` sets the SaL kernel's dispatch
-(``ops.attention.enable_sal_fused``), as in the JAX package. Every JAX knob
-the port does not have yet raises when it is set (:func:`check_unported`).
+``DEVICE``). ``SAL_FUSED`` sets the SaL kernel's dispatch
+(``ops.attention.enable_sal_fused``), as in the JAX package. ``SCAN_LAYERS``
+and ``FLASH`` are refused (:func:`check_unported`).
+
+Across cards (``MESH: {data, model}`` under ``torch.distributed``,
+``parallel/``): the model is split by the tensor-parallel plan after its
+seeded init; each data rank trains on its interleaved rows of every batch
+(``TRAIN_BATCH_SIZE`` must divide the data axis), the loss is the global
+token mean and the gradients are summed over the data axis
+(``parallel/optimizer.py``); eval and predict split each batch's rows over
+the data axis and gather the answers; checkpoints hold full tensors, which
+rank 0 writes and every rank splits on restore, so a checkpoint moves
+between a mesh and one process; rank 0 writes ``results.json`` and
+``metrics.jsonl``. Serving over a mesh is not ported (ROADMAP A15b).
+
+Host knobs: ``FEATURE_CACHE`` (``data/feature_cache.py``), ``NUMWORKERS``
+(``data/loader.py: prefetch`` in train, eval and predict), ``PROFILE_DIR``
+(a ``torch.profiler`` trace of the first epoch) and ``DEBUG_NANS``
+(``utils/profiling.py: NanCheck``; refused in serve mode, whose decode is
+captured in CUDA graphs).
 
 Fine-tuning knobs, as the JAX executor has them: ``LORA_RANK`` (adapters
 trained over a frozen base, ``train/lora.py``), ``EMA_DECAY`` (an average
@@ -53,10 +70,11 @@ from typing import Dict, List
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import evaluation
 from ..config import Config
-from ..data.loader import batch_iterator, num_batches
+from ..data.loader import batch_iterator, num_batches, prefetch
 from ..data.vit_cache import attach_vit_cache
 from ..decode.pool import CACHE_KEYS, pool_greedy_decode
 from ..decode.sample import sample_generator
@@ -68,7 +86,13 @@ from ..models.generate import (
 )
 from ..models.latr import to_device_batch
 from ..ops import attention as attn_mod
+from ..parallel import tensor_parallel as tp_mod
+from ..parallel.mesh import (create_mesh, pad_batch_to_devices, shard_batch, shard_rows,
+                             shard_tensor, tp_plan)
+from ..parallel.multihost import local_device
+from ..parallel.optimizer import MeshOptimizer
 from ..serving.engine import decode_rows
+from ..utils import profiling
 from ..utils.device import resolve_device
 from ..utils.logger import get_logger
 from ..utils.registry import MODELS
@@ -99,15 +123,10 @@ def _mesh_devices(mesh) -> int:
     return n
 
 
-# (key, is it set?, ROADMAP item): JAX knobs the port does not have
+# (key, is it set?, ROADMAP item): JAX knobs the port refuses
 UNPORTED = (
     ("SCAN_LAYERS", lambda v: bool(v),
      "A12: refused, an XLA compile means; models/bridge.py reads stacked trees"),
-    ("FEATURE_CACHE", lambda v: bool(v), "A12"),
-    ("PROFILE_DIR", lambda v: bool(v), "A12"),
-    ("DEBUG_NANS", lambda v: bool(v), "A12"),
-    ("NUMWORKERS", lambda v: bool(v), "A12"),
-    ("MESH", lambda v: _mesh_devices(v) > 1, "A15"),
     ("FLASH", lambda v: v is not None, "B1: the port always runs its kernel on the card"),
 )
 
@@ -138,10 +157,16 @@ class BaseExecutor:
         self.mode = mode
         self.evaltype = evaltype
         self.predicttype = predicttype
-        self.device = resolve_device(device)
+        self.device = local_device(resolve_device(device))
         self.best_score = 0.0
         self._generate_fns: Dict = {}
         check_unported(self.config)
+        if mode == "serve" and self.config.get("DEBUG_NANS"):
+            raise ValueError("DEBUG_NANS is refused in serve mode: its checks read every "
+                             "module's output back to the host, and the serving decode is "
+                             "captured in CUDA graphs; use it in train, eval or predict")
+        self.mesh = self._create_mesh()
+        self._tp_plan: Dict[str, int] = {}
         if self.config.get("SAL_FUSED") is not None:
             attn_mod.enable_sal_fused(bool(self.config.get("SAL_FUSED")))
         if mode == "train":
@@ -158,6 +183,36 @@ class BaseExecutor:
             self._build_model()
         else:
             raise ValueError(f"unknown mode {mode!r}")
+        self.nan_check = (profiling.NanCheck(self.model) if self.config.get("DEBUG_NANS")
+                          else None)
+
+    def _create_mesh(self):
+        """The (data, model) mesh over the process group (``parallel/mesh.py``),
+        or None in a single process without one. A ``MESH`` of more than one
+        device without a group raises: launch with ``torchrun``
+        (``parallel/multihost.py``). Serving over a mesh is not ported."""
+        mesh_cfg = self.config.get("MESH")
+        distributed = dist.is_available() and dist.is_initialized()
+        if self.mode == "serve":
+            if _mesh_devices(mesh_cfg) > 1 or (distributed and dist.get_world_size() > 1):
+                raise NotImplementedError("serving over a MESH is not ported yet (ROADMAP A15b)")
+            return None
+        if not distributed:
+            if _mesh_devices(mesh_cfg) > 1:
+                raise ValueError(f"MESH={dict(mesh_cfg)!r} needs one process per device: launch "
+                                 "with torchrun --nproc-per-node N -m phoneme_vqa_torch.run "
+                                 "(MULTIHOST, parallel/multihost.py)")
+            return None
+        # the mesh's own device type only places DTensors, which the port
+        # does not use: gloo's mesh is a CPU one even over CUDA tensors
+        mesh = create_mesh(mesh_cfg, "cpu" if dist.get_backend() == "gloo" else self.device.type)
+        log.info(f"# mesh: {mesh.describe()}")
+        return mesh
+
+    @property
+    def is_main(self) -> bool:
+        """Whether this process writes results, metrics and checkpoints."""
+        return self.mesh is None or self.mesh.is_main
 
     @property
     def model_class(self):
@@ -270,10 +325,11 @@ class BaseExecutor:
                 results = [{"gens": p, "confidence": math.exp(c)} for p, c in zip(*preds)]
             else:
                 results = [{"gens": p} for p in preds]
-        out_path = os.path.join(self.config.SAVE_PATH or ".", "results.json")
-        with open(out_path, "w", encoding="utf-8") as f:
-            json.dump(results, f, ensure_ascii=False, indent=4)
-        log.info("Saved Results !")
+        if self.is_main:
+            out_path = os.path.join(self.config.SAVE_PATH or ".", "results.json")
+            with open(out_path, "w", encoding="utf-8") as f:
+                json.dump(results, f, ensure_ascii=False, indent=4)
+            log.info("Saved Results !")
         return results
 
     # -- metrics ---------------------------------------------------------------
@@ -317,8 +373,15 @@ class BaseExecutor:
         batch_size = batch_size or self.config.EVAL_BATCH_SIZE
         self.model.eval()
         total, n = 0.0, 0
-        for batch, _ in batch_iterator(self.val_data, batch_size, drop_last=True):
-            total += float(self._loss_from_batch(self._to_device(batch)))
+        dp, rank = (self.mesh.dp, self.mesh.dp_rank) if self.mesh is not None else (1, 0)
+        if batch_size % dp:
+            raise ValueError(f"VAL_LOSS: EVAL_BATCH_SIZE={batch_size} must divide the data "
+                             f"axis ({dp})")
+        n_batches = num_batches(len(self.val_data) // dp, batch_size // dp, drop_last=True)
+        for batch, _ in itertools.islice(
+                batch_iterator(self.val_data, batch_size // dp, drop_last=True, shard=rank,
+                               num_shards=dp), n_batches):
+            total += float(self._data_sum(self._loss_from_batch(self._to_device(batch))))
             n += 1
         return total / max(n, 1)
 
@@ -352,11 +415,45 @@ class BaseExecutor:
         return tree
 
     def _save_checkpoint(self, name: str):
-        self.ckpt.save(name, self._ckpt_tree())
+        """Over a mesh every rank gathers the full tensors and rank 0 writes
+        them: the file is the one a single process would write."""
+        tree = self._ckpt_tree()
+        if self.mesh is not None:
+            tree = self._gather_tree(tree)
+        if self.is_main:
+            self.ckpt.save(name, tree)
+        if self.mesh is not None:
+            dist.barrier()
+
+    def _gather_tree(self, tree: dict) -> dict:
+        tree = dict(tree, params=self.tx.gather_params(tree["params"]),
+                    opt_state=self.tx.gather_state(tree["opt_state"]))
+        if "ema_params" in tree:
+            tree["ema_params"] = self.tx.gather_params(tree["ema_params"])
+        return tree
+
+    def _localize(self, restored: dict) -> dict:
+        """A checkpoint's full tensors as this rank's parts (over a mesh);
+        an optimizer state that does not split is dropped, so the resume
+        falls back to a params-only one."""
+        if self.mesh is None or not isinstance(restored.get("params"), dict):
+            return restored
+        out = dict(restored)
+        if not lora_mod.is_composite(out["params"]):
+            out["params"] = self._shard_params(out["params"])
+        if isinstance(out.get("ema_params"), dict):
+            out["ema_params"] = self._shard_params(out["ema_params"])
+        if isinstance(out.get("opt_state"), dict) and hasattr(self, "tx"):
+            try:
+                out["opt_state"] = self.tx.shard_state(out["opt_state"])
+            except (KeyError, IndexError, RuntimeError, TypeError):
+                out["opt_state"] = None
+        return out
 
     def _log_metrics(self, record: dict) -> None:
-        """One JSON line per epoch appended to SAVE_PATH/metrics.jsonl."""
-        if not self.config.get("SAVE_PATH"):
+        """One JSON line per epoch appended to SAVE_PATH/metrics.jsonl (by
+        rank 0 of a mesh)."""
+        if not self.config.get("SAVE_PATH") or not self.is_main:
             return
         record = dict(record, step=int(self.state.step), wall_time=time.time())
         os.makedirs(self.config.SAVE_PATH, exist_ok=True)
@@ -364,8 +461,11 @@ class BaseExecutor:
                   encoding="utf-8") as f:
             f.write(json.dumps(record, ensure_ascii=False) + "\n")
 
-    def _check_params(self, params) -> None:
-        want = {n: tuple(p.shape) for n, p in self.model.named_parameters()}
+    def _check_params(self, params, local: bool = False) -> None:
+        """``params`` has the model's names and full shapes (this rank's
+        split shapes with ``local``)."""
+        want = ({n: tuple(p.shape) for n, p in self.model.named_parameters()} if local
+                else self._full_shapes())
         got = {n: tuple(p.shape) for n, p in params.items()}
         if got != want:
             raise ValueError(f"checkpoint parameters differ from the model's: "
@@ -381,7 +481,7 @@ class BaseExecutor:
             if not self.ckpt.exists(name):
                 continue
             try:
-                restored = self.ckpt.restore(name, self.device)
+                restored = self._localize(self.ckpt.restore(name, self.device))
             except (OSError, EOFError, pickle.UnpicklingError, RuntimeError, ValueError,
                     KeyError) as e:
                 log.warning(f"(!) {name}_ckp exists but is unreadable ({e!r}): falling back to "
@@ -463,7 +563,7 @@ class BaseExecutor:
                     adapters = params["lora"]
                 params = params["base"]
         try:
-            self._check_params(params)
+            self._check_params(params, local=True)
         except ValueError:
             return False
         if self.state.lora is not None:
@@ -544,7 +644,7 @@ class BaseExecutor:
         (what eval and predict decode with)."""
         self._uninstall_lora()
         if self.state.lora is None:
-            self.state.params = bind_params(self.model, params)
+            self.state.params = bind_params(self.model, self._shard_params(params))
             return
         masters = bind_params(self.model, params["base"])
         self.state.params = {n: t.detach().clone() if n in params["lora"] and
@@ -554,6 +654,66 @@ class BaseExecutor:
                                .requires_grad_(True) for k, v in ad.items()}
                            for n, ad in params["lora"].items()}
         self._refresh_lora_weights()
+
+    # -- the mesh: the tensor-parallel split ------------------------------------
+
+    def _full_shapes(self) -> Dict[str, tuple]:
+        """Every parameter's shape before the tensor-parallel split."""
+        shapes = getattr(self, "_unsplit_shapes", None)
+        return shapes or {n: tuple(p.shape) for n, p in self.model.named_parameters()}
+
+    def _maybe_parallelize(self) -> None:
+        """Split the model and its masters over the mesh's model axis
+        (``parallel/mesh.py: tp_plan``), after the full seeded init and any
+        import, so every model rank starts from one process's weights."""
+        if self.mesh is None or self.mesh.tp == 1:
+            return
+        self._unsplit_shapes = {n: tuple(p.shape) for n, p in self.model.named_parameters()}
+        self._tp_plan = tp_plan(self.model, self.mesh.tp)
+        full = self.state.params
+        tp_mod.parallelize_(self.model, self._tp_plan, self.mesh.tp_rank, self.mesh.tp,
+                            self.mesh.tp_group)
+        self.state.params = bind_params(self.model, self._shard_params(full))
+
+    def _shard_params(self, params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """A full params tree as this rank's parts (a part already split as
+        it is)."""
+        if not self._tp_plan:
+            return params
+        full, out = self._full_shapes(), {}
+        for n, t in params.items():
+            dim = self._tp_plan.get(n)
+            if dim is not None and tuple(t.shape) == full.get(n):
+                t = shard_tensor(t, dim, self.mesh.tp_rank, self.mesh.tp).clone()
+            out[n] = t
+        return out
+
+    def _wrap_optimizer(self, tx):
+        """Over a mesh, the optimizer step of ``parallel/optimizer.py``."""
+        if self.mesh is None:
+            return tx
+        return MeshOptimizer(tx, self.mesh, self._tp_plan, self._full_shapes())
+
+    def _global_count(self, targets: torch.Tensor, pad_id: int):
+        """The non-pad target count of the global batch over a mesh (the
+        loss's denominator, ``optim.cross_entropy_loss``), else None."""
+        if self.mesh is None:
+            return None
+        count = (targets != pad_id).sum().float()
+        return tp_mod.all_reduce(count, self.mesh.dp_group)
+
+    def _data_sum(self, value: torch.Tensor) -> torch.Tensor:
+        """``value`` summed over the data axis (each data rank's share of the
+        global mean -> the global mean)."""
+        if self.mesh is None:
+            return value
+        return tp_mod.all_reduce(value.clone(), self.mesh.dp_group)
+
+    def _maybe_prefetch(self, iterator):
+        """``NUMWORKERS > 0``: batches assembled on a background thread,
+        ``max(2, NUMWORKERS)`` ahead (``data/loader.py: prefetch``)."""
+        workers = int(self.config.get("NUMWORKERS", 0) or 0)
+        return prefetch(iterator, depth=max(2, workers)) if workers > 0 else iterator
 
     def _opt_params(self) -> Dict[str, torch.Tensor]:
         """What the optimizer updates, by name: the masters, or under LoRA
@@ -581,6 +741,10 @@ class BaseExecutor:
         spec = lora_mod.from_config(self.config)
         if spec is None:
             return
+        if self.mesh is not None and self.mesh.tp > 1:
+            raise NotImplementedError("LORA_RANK with MESH model > 1 is not ported yet "
+                                      "(ROADMAP A15b): an adapter of a split weight needs its "
+                                      "gradient summed over the model axis")
         generator = torch.Generator(device=self.device).manual_seed(
             int(self.config.get("SEED", 13)) + 1)
         adapters = lora_mod.init_lora(self.model, spec, generator, self.device)
@@ -654,9 +818,12 @@ class BaseExecutor:
         ``labels[:, :-1]`` in, ``labels[:, 1:]`` scored."""
         labels = batch["label_ids"]
         label_mask = batch["label_attention_mask"]
-        logits = self.model(self._model_batch(batch), labels[:, :-1], label_mask[:, :-1])
-        return cross_entropy_loss(logits, labels[:, 1:], self._loss_pad_id(),
-                                  label_smoothing=self._label_smoothing())
+        with tp_mod.local_logits(self.model.t5) as vocab_shard:
+            logits = self.model(self._model_batch(batch), labels[:, :-1], label_mask[:, :-1])
+        targets, pad = labels[:, 1:], self._loss_pad_id()
+        return cross_entropy_loss(logits, targets, pad, label_smoothing=self._label_smoothing(),
+                                  count=self._global_count(targets, pad),
+                                  vocab_shard=vocab_shard)
 
     def _loss_pad_id(self) -> int:
         """The label id the loss ignores: the decoding vocabulary's pad."""
@@ -701,7 +868,9 @@ class BaseExecutor:
         a device batch. Under LoRA the adapted weights are rebuilt from the
         adapters first."""
         self.model.train()
-        self.model.t5.dropout_rng.reseed(self.config.get("SEED", 13), self.state.step, micro)
+        rank = self.mesh.dp_rank if self.mesh is not None and self.mesh.dp > 1 else None
+        self.model.t5.dropout_rng.reseed(self.config.get("SEED", 13), self.state.step, micro,
+                                         rank)
         if self.state.lora is not None:
             self._install_lora()
         return self._loss_from_batch(batch)
@@ -750,15 +919,15 @@ class BaseExecutor:
         accum = self._grad_accum_steps()
         if accum <= 1:
             loss = self.forward_loss(self._to_device(batch))
-            loss.backward()
+            profiling.backward(loss)
             self.apply_gradients()
-            return loss.detach()
+            return self._data_sum(loss.detach())
         rows = len(next(iter(batch.values()))) // accum
         total, summed = None, None
         for i in range(accum):
             micro = {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
             loss = self.forward_loss(self._to_device(micro), micro=i)
-            loss.backward()
+            profiling.backward(loss)
             grads = self._collect_grads()
             if summed is None:
                 summed, total = grads, loss.detach()
@@ -768,7 +937,7 @@ class BaseExecutor:
         inv = 1.0 / accum
         torch._foreach_mul_(list(summed.values()), inv)
         self.apply_gradients(summed)
-        return total * inv
+        return self._data_sum(total * inv)
 
     def _train_epoch(self, epoch: int) -> float:
         """One epoch of steps over the epoch-seeded shuffle. ``SAVE_EVERY_STEPS``
@@ -776,9 +945,25 @@ class BaseExecutor:
         epoch; a run resumed from such a checkpoint skips the batches it
         already trained."""
         c = self.config
-        n_steps = num_batches(len(self.train_data), c.TRAIN_BATCH_SIZE, drop_last=True)
-        batches = batch_iterator(self.train_data, c.TRAIN_BATCH_SIZE, shuffle=True,
-                                 seed=c.get("SEED", 13) + epoch, drop_last=True)
+        # a data-parallel mesh: each data rank takes its interleaved rows, so
+        # a step's rows over the ranks are one process's batch
+        dp, rank = (self.mesh.dp, self.mesh.dp_rank) if self.mesh is not None else (1, 0)
+        if c.TRAIN_BATCH_SIZE % dp:
+            raise ValueError(
+                f"TRAIN_BATCH_SIZE={c.TRAIN_BATCH_SIZE} must divide the data axis ({dp}): each "
+                f"data rank trains on batch/data rows. Use "
+                f"{pad_batch_to_devices(c.TRAIN_BATCH_SIZE, dp)}.")
+        local_bs = c.TRAIN_BATCH_SIZE // dp
+        if local_bs % self._grad_accum_steps():
+            raise ValueError(f"GRAD_ACCUM_STEPS={self._grad_accum_steps()} must divide each data "
+                             f"rank's {local_bs} rows")
+        n_steps = num_batches(len(self.train_data) // dp, local_bs, drop_last=True)
+        # every rank stops at the same step (the first rank may hold one more
+        # full batch of rows)
+        batches = itertools.islice(
+            batch_iterator(self.train_data, local_bs, shuffle=True, seed=c.get("SEED", 13) + epoch,
+                           drop_last=True, shard=rank, num_shards=dp), n_steps)
+        batches = self._maybe_prefetch(batches)
         save_every = int(c.get("SAVE_EVERY_STEPS", 0) or 0)
         skip = int(getattr(self, "_resume_step_in_epoch", 0) or 0)
         self._resume_step_in_epoch = 0  # only the interrupted epoch skips
@@ -786,25 +971,27 @@ class BaseExecutor:
             log.info(f"--TRAINING--|Epoch: {epoch}| fast-forwarding {skip} already-trained "
                      "batches from the mid-epoch checkpoint")
         total, it = 0.0, 0
-        t0 = time.perf_counter()
-        for batch, _ in batches:
-            if it < skip:
+        timer = profiling.StepTimer()
+        timer.start()
+        profile_dir = c.get("PROFILE_DIR") if epoch == 1 else None
+        with profiling.maybe_trace(profile_dir, "train_epoch", cuda=self.device.type == "cuda"):
+            for batch, _ in batches:
+                if it < skip:
+                    it += 1
+                    continue
+                total += float(self.train_step(batch))
+                timer.tick(c.TRAIN_BATCH_SIZE)
                 it += 1
-                continue
-            total += float(self.train_step(batch))
-            it += 1
-            done = it - skip
-            if done == 1 or it % 20 == 0 or it == n_steps:
-                elapsed = time.perf_counter() - t0
-                log.info(f"--TRAINING--|Epoch: {epoch}| Step: {it}/{n_steps} "
-                         f"| Loss: {round(total / done, 2)} | {1e3 * elapsed / done:.1f} ms/step, "
-                         f"{done * c.TRAIN_BATCH_SIZE / elapsed:.1f} samples/s")
-            if save_every and c.get("SAVE") and it % save_every == 0:
-                # tagged even at it == n_steps: the epoch's eval and counter
-                # have not run yet, so a resume skips every batch of it
-                self._step_in_epoch = it
-                self._save_checkpoint("last")
-                self._step_in_epoch = 0
+                done = it - skip
+                if done == 1 or it % 20 == 0 or it == n_steps:
+                    log.info(f"--TRAINING--|Epoch: {epoch}| Step: {it}/{n_steps} "
+                             f"| Loss: {round(total / done, 2)} | {timer.summary()}")
+                if save_every and c.get("SAVE") and it % save_every == 0:
+                    # tagged even at it == n_steps: the epoch's eval and counter
+                    # have not run yet, so a resume skips every batch of it
+                    self._step_in_epoch = it
+                    self._save_checkpoint("last")
+                    self._step_in_epoch = 0
         return total / max(it - skip, 1)
 
     # -- VIT_CACHE ------------------------------------------------------------------
@@ -876,11 +1063,13 @@ class BaseExecutor:
         elif self._use_pool_decode():
             return lambda: self._answers(
                 *self._infer_pool(dataset, batch_size, max_length, return_scores), return_scores)
+        elif self.mesh is not None:
+            return lambda: self._infer_mesh(batches, max_length, return_scores)
         else:
             generate = self._get_generate_fn(max_length, return_scores)
             # a generator: each batch moves to the device when resolve reaches it
             pending = ((functools.partial(generate, self._device_batch(b)), n_valid)
-                       for b, n_valid in batches)
+                       for b, n_valid in self._maybe_prefetch(batches))
 
         def resolve():
             rows, scores = [], []
@@ -893,6 +1082,28 @@ class BaseExecutor:
             return self._answers(rows, scores, return_scores)
 
         return resolve
+
+    def _infer_mesh(self, batches, max_length: int, return_scores: bool):
+        """``infer`` over a mesh: each data rank decodes its rows of every
+        batch (all of them when the batch does not divide the data axis), the
+        model ranks of a data rank together; the rows are then gathered over
+        the data axis, so every rank returns every answer."""
+        generate = self._get_generate_fn(max_length, return_scores)
+        mine = []
+        for batch, n_valid in self._maybe_prefetch(batches):
+            split = shard_rows(self.mesh, len(next(iter(batch.values())))) is not None
+            out = generate(self._device_batch(shard_batch(self.mesh, batch)))
+            ids = out[0] if return_scores else out
+            mine.append((ids.tolist(), out[1].double().tolist() if return_scores else [],
+                         n_valid, split))
+        parts = [None] * self.mesh.dp
+        dist.all_gather_object(parts, mine, group=self.mesh.dp_group)
+        rows, scores = [], []
+        for i, (_, _, n_valid, split) in enumerate(mine):
+            pieces = [p[i] for p in parts] if split else [parts[0][i]]
+            rows.extend([r for piece in pieces for r in piece[0]][:n_valid])
+            scores.extend([x for piece in pieces for x in piece[1]][:n_valid])
+        return self._answers(rows, scores, return_scores)
 
     def _answers(self, rows, scores, return_scores: bool):
         answers = self._decode_rows(rows)
@@ -954,6 +1165,8 @@ class BaseExecutor:
             reason = "SAMPLE/SPEC_DECODE configs use the batch decode"
         elif not (c.get("isgreedy", True) or int(c.get("num_beam", 1) or 1) <= 1):
             reason = "beam search uses the batch decode"
+        elif self.mesh is not None:
+            reason = "a mesh decodes through the data-parallel batch decode"
         if reason is not None:
             if not getattr(self, "_warned_pool", False):
                 log.warning(f"(!) EVAL_CONTINUOUS ignored: {reason}")
@@ -994,7 +1207,8 @@ class BaseExecutor:
                 scores.extend(out[1].double().tolist())
             caches, masks, pooled = [], [], 0
 
-        for batch, n_valid in batch_iterator(dataset, batch_size, pad_final=True):
+        for batch, n_valid in self._maybe_prefetch(batch_iterator(dataset, batch_size,
+                                                                  pad_final=True)):
             cache, full_bias, enc_mask = model.encode_for_generate(self._device_batch(batch),
                                                                    max_length)
             caches.append({n: cache[n][:, :n_valid] for n in CACHE_KEYS})  # drop the pad rows

@@ -14,6 +14,7 @@ import os
 
 import torch
 
+from ..data import feature_cache
 from ..data.adapters import textlayout_ocr_adapt
 from ..data.loader import num_batches
 from ..data.synthetic import read_qa_csv
@@ -52,8 +53,20 @@ class LaTrExecutor(BaseExecutor):
             qa_rows, ocr_store, self.tokenizer, c.base_img_path,
             max_ocr_element=c.max_ocr_element, max_ocr_length=c.max_ocr_length,
             max_input_length=c.max_q_length, max_output_length=c.max_a_length,
-            answer_encoder=self._answer_encoder(),
+            answer_encoder=self._answer_encoder(), **self._feature_cache_args(),
         ).dataset
+
+    def _feature_cache_args(self) -> dict:
+        """``FEATURE_CACHE: <dir>`` -> the dataset's cache arguments (none in
+        serve mode: its batches are per-request). The tag names the answer
+        tokenizer of the customized and phoneme executors, whose vocabulary
+        the rows' content does not capture."""
+        cache_dir = self.config.get("FEATURE_CACHE") or None
+        if self.mode == "serve":
+            cache_dir = None
+        tok = getattr(self, "decode_tokenizer", None)
+        return {"cache_dir": cache_dir,
+                "cache_tag": feature_cache.tokenizer_tag(tok) if tok is not None else ""}
 
     def _answer_encoder(self):
         """None: answers are encoded by the backbone tokenizer (the
@@ -67,7 +80,8 @@ class LaTrExecutor(BaseExecutor):
 
     def _adapt_frames(self) -> tuple:
         """The feature stores ``_make_dataset`` takes after the QA rows."""
-        return (textlayout_ocr_adapt(self.config.ocr_path),)
+        return (textlayout_ocr_adapt(self.config.ocr_path,
+                                     cache_dir=self.config.get("FEATURE_CACHE") or None),)
 
     def _prepare_decode_tokenizer(self, train_rows, val_rows):
         """The custom decoders' executors build their answer tokenizer here."""
@@ -144,6 +158,7 @@ class LaTrExecutor(BaseExecutor):
         self.state = TrainState(params=bind_params(self.model, self._random_params()),
                                 opt_state=None)
         self._maybe_import_pretrained()
+        self._maybe_parallelize()
 
     def _defer_params_init(self) -> bool:
         """Serve mode leaves the model on the meta device (a checkpoint
@@ -197,7 +212,7 @@ class LaTrExecutor(BaseExecutor):
         self._lr_schedule = schedule  # metrics.jsonl logs the live LR
         self._grad_accum_steps()  # a value that does not divide the batch raises here
         self._maybe_enable_lora()
-        self.tx = self._make_optimizer(schedule)
+        self.tx = self._wrap_optimizer(self._make_optimizer(schedule))
         self.state.opt_state = self.tx.init(self._opt_params())
         if self._ema_decay():
             self.state.ema_params = tree_map(lambda t: t.detach().clone(), self._ckpt_params())

@@ -208,6 +208,13 @@ class Adafactor:
         self.decay_rate = decay_rate
         self.clipping_threshold = clipping_threshold
         self.eps = eps
+        # over a mesh (``parallel/optimizer.py``): the model group, each
+        # split parameter's split dimension in flax's view and every
+        # parameter's global shape in that view, so the factored axes and
+        # the means are the one-process ones
+        self.tp_group = None
+        self.view_split: Dict[str, int] = {}
+        self.global_shapes: Dict[str, tuple] = {}
 
     trainable = Adam.trainable
     _clip_ = Adam._clip_
@@ -220,13 +227,26 @@ class Adafactor:
             return None
         return order[-2], order[-1]
 
+    def _shape(self, name: str, view: torch.Tensor) -> tuple:
+        return self.global_shapes.get(name, tuple(view.shape))
+
+    def _mean(self, t: torch.Tensor, dim: int, split: Optional[int], length: int,
+              keepdim: bool = False) -> torch.Tensor:
+        """``t.mean(dim)`` over the global tensor: summed over the model
+        group where ``dim`` is the split one (``length``: its global size)."""
+        if split != dim:
+            return t.mean(dim, keepdim=keepdim)
+        from ..parallel.tensor_parallel import all_reduce
+
+        return all_reduce(t.sum(dim, keepdim=keepdim), self.tp_group) / length
+
     def init(self, params: Dict[str, torch.Tensor]) -> dict:
         state = {"count": 0, "v_row": {}, "v_col": {}, "v": {}}
         for n, p in params.items():
             if not self.trainable(n):
                 continue
             view = _flax_view(p, n in self.kernels)
-            dims = self._factored_dims(view.shape)
+            dims = self._factored_dims(self._shape(n, view))
             if dims is None:
                 state["v"][n] = torch.zeros_like(view)
             else:
@@ -249,19 +269,27 @@ class Adafactor:
             kernel = n in self.kernels
             g = _flax_view(grads[n], kernel)
             grad_sqr = g * g + self.eps
+            shape, split = self._shape(n, g), self.view_split.get(n)
             if n in state["v"]:
                 v = state["v"][n]
                 v.copy_(decay * v + keep * grad_sqr)
                 update = g * v ** -0.5
             else:
-                d1, d0 = self._factored_dims(g.shape)
+                d1, d0 = self._factored_dims(shape)
                 v_row, v_col = state["v_row"][n], state["v_col"][n]
-                v_row.copy_(decay * v_row + keep * grad_sqr.mean(d0))
-                v_col.copy_(decay * v_col + keep * grad_sqr.mean(d1))
+                v_row.copy_(decay * v_row + keep * self._mean(grad_sqr, d0, split, shape[d0]))
+                v_col.copy_(decay * v_col + keep * self._mean(grad_sqr, d1, split, shape[d1]))
                 reduced_d1 = d1 - 1 if d1 > d0 else d1
-                row_factor = (v_row / v_row.mean(reduced_d1, keepdim=True)) ** -0.5
+                row_split = None if split in (None, d0) else split - (split > d0)
+                row_mean = self._mean(v_row, reduced_d1, row_split, shape[d1], keepdim=True)
+                row_factor = (v_row / row_mean) ** -0.5
                 update = g * row_factor.unsqueeze(d0) * (v_col ** -0.5).unsqueeze(d1)
-            rms = update.square().mean().sqrt()
+            if split is None:
+                rms = update.square().mean().sqrt()
+            else:
+                from ..parallel.tensor_parallel import all_reduce
+
+                rms = (all_reduce(update.square().sum(), self.tp_group) / math.prod(shape)).sqrt()
             update = update / torch.clamp(rms / self.clipping_threshold, min=1.0)
             update = lr * update
             p = _flax_view(params[n], kernel)
@@ -327,16 +355,30 @@ def optimizer_extras_from_config(config) -> dict:
 
 
 def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor, pad_id: int,
-                       label_smoothing: float = 0.0) -> torch.Tensor:
+                       label_smoothing: float = 0.0, count: Optional[torch.Tensor] = None,
+                       vocab_shard=None) -> torch.Tensor:
     """Token-mean CE over non-pad targets (torch CrossEntropyLoss
     ignore_index semantics). logits (..., V), targets (...) int.
 
     ``label_smoothing`` a (YAML ``LABEL_SMOOTHING``): the smoothed CE
-    (1-a)·NLL(target) - (a/V)·sum(logp), without a one-hot."""
+    (1-a)·NLL(target) - (a/V)·sum(logp), without a one-hot.
+
+    Over a mesh: ``count`` is the non-pad token count of the global batch
+    (the data ranks' counts summed), so each rank's loss is its share of the
+    global token mean and the ranks' gradients sum to the gradient of that
+    mean; ``vocab_shard`` (``parallel.tensor_parallel.Shard``) marks
+    ``logits`` as this rank's vocabulary slice
+    (``vocab_parallel_cross_entropy``)."""
     mask = (targets != pad_id).float()
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    ll = logp.gather(-1, targets[..., None].long())[..., 0]
-    if label_smoothing:
-        a = float(label_smoothing)
-        ll = (1.0 - a) * ll + (a / logits.shape[-1]) * logp.sum(dim=-1)
-    return -(ll * mask).sum() / mask.sum().clamp(min=1.0)
+    if vocab_shard is not None:
+        from ..parallel.tensor_parallel import vocab_parallel_cross_entropy
+
+        ll = vocab_parallel_cross_entropy(logits, targets, vocab_shard, label_smoothing)
+    else:
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        ll = logp.gather(-1, targets[..., None].long())[..., 0]
+        if label_smoothing:
+            a = float(label_smoothing)
+            ll = (1.0 - a) * ll + (a / logits.shape[-1]) * logp.sum(dim=-1)
+    denominator = mask.sum() if count is None else count
+    return -(ll * mask).sum() / denominator.clamp(min=1.0)

@@ -73,7 +73,8 @@ class _PhonemeTripleExecMixin(_CustomizedMixin):
         mask = batch["label_attention_mask"]
         heads = self.model(self._model_batch(batch), labels[:, :-1, :], mask[:, :-1])
         pad, smoothing = self.decode_tokenizer.pad_id, self._label_smoothing()
-        return sum(cross_entropy_loss(logits, labels[:, 1:, c], pad, label_smoothing=smoothing)
+        return sum(cross_entropy_loss(logits, labels[:, 1:, c], pad, label_smoothing=smoothing,
+                                      count=self._global_count(labels[:, 1:, c], pad))
                    for c, logits in enumerate(heads))
 
 

@@ -44,8 +44,10 @@ class SaLExecutor(LaTrExecutor):
             max_obj_element=c.max_obj_element, max_obj_length=c.max_obj_length,
             max_input_length=c.max_q_length, max_output_length=c.max_a_length,
             context_token=c.context_token, answer_encoder=self._answer_encoder(),
+            **self._feature_cache_args(),
         ).dataset
 
     def _adapt_frames(self):
-        return (textlayout_ocr_adapt(self.config.base_ocr_feature_path, 1, 1),
-                textlayout_obj_adapt(self.config.base_obj_feature_path, 1, 1))
+        cache_dir = self.config.get("FEATURE_CACHE") or None
+        return (textlayout_ocr_adapt(self.config.base_ocr_feature_path, 1, 1, cache_dir),
+                textlayout_obj_adapt(self.config.base_obj_feature_path, 1, 1, cache_dir))
