@@ -117,7 +117,10 @@ Phases (any failure exits non-zero; nothing is caught and carried past):
     launches); a beam of one gives greedy's rows; in f32 the beam through
     the kernels gives the plain path's rows (but at the beam's near-ties)
     and scores within 1e-4; ms a batch and peak memory against greedy's,
-    the rows whose score beats greedy's, the profiler's busy share
+    the rows whose score beats greedy's, the profiler's busy share; C1: the
+    bf16 beam executor serves 32 requests through the gathered engine (its
+    eager decode, as stats() names it), rows equal to its infer's, one
+    batch, 24 launches
 11. LaTr-base with SPEC_DECODE 4 (B=32): in f32 one decode_step_k window
     equals four one-token steps (1e-4 relative); oracle drafts (greedy's
     own rows) take one trip a window; prompt-lookup speculative decoding
@@ -130,8 +133,10 @@ Phases (any failure exits non-zero; nothing is caught and carried past):
     near-ties), 24 launches a prefilled batch; ms against the batch path
 13. LaTr-base SAMPLE: TEMPERATURE 0 and TOP_K 1 give greedy's tokens, one
     SEED draws the same tokens, two calls draw others, TOP_K 5 draws lie in
-    each step's five highest logits; PREDICT_SCORES through predict() gives
-    confidences within 1e-6 of exp(greedy's scores)
+    each step's five highest logits; C1: the SAMPLE executor serves 32
+    requests through the gathered engine, rows equal to its infer's at the
+    same call counter; PREDICT_SCORES through predict() gives confidences
+    within 1e-6 of exp(greedy's scores)
 14. the gathered ServingEngine (buckets 1, 4, 32) over LaTr-base and
     PhonemeLaTr-base: every bucket's replayed rows bit for bit the eager
     generate's, and 128 requests from 8 client threads answered as
@@ -210,6 +215,18 @@ Phases (any failure exits non-zero; nothing is caught and carried past):
     for bit, greedy rows at the seeded init identical but at ties within
     1e-4, beam rows identical; per rank ms a step, peak GB, optimizer-state
     bytes
+26. serving over a mesh, from phase 25's spawned processes once their steps
+    are done (phoneme_vqa_torch.dryrun.run_mesh's serve mode): full-width,
+    full-depth LaTr-base in f32, two gloo processes on the one card, the
+    gathered engine at {model: 2} (64 requests in waves of 1, 3 and 60:
+    buckets 1, 4, 32) and the continuous engine (32 slots), the gathered
+    engine at {data: 2} (buckets 2, 4, 32), SaL-base's gathered engine at
+    {model: 2} (32 requests at bucket 32); with 2 cards both LaTr-base
+    engines at {model: 2} over NCCL too (over any mesh the decode is eager).
+    Rows equal this process's eager greedy rows on the same seeded weights
+    but at top-2 ties within 1e-4; every rank's launches exact (24 a LaTr
+    batch or prefill chunk at 6 heads or half the rows; 12 SaL, 0 attention
+    a SaL batch); ms a batch and answers/s per rank
 
 Prints the run's total seconds, a {"kernels": [...]} line, the card line, and last
 {"ok": true, "device": {...}}. Needs the repo's phoneme_vqa_torch package;
@@ -2027,9 +2044,53 @@ class beam_gaps:
         beam_mod.top_k_stable = self.saved
 
 
-def beam_phase(title, make_ex, max_answer, per_batch: dict) -> dict:
+def c1_serving(phase, title, ex, max_answer, per_batch: dict, restart=None) -> dict:
+    """C1: an executor whose decode is not greedy (beam search, SAMPLE)
+    serves BATCH requests through the gathered engine on the card, one
+    batch through its eager decode: the rows equal ``ex.infer``'s on the
+    same requests (``restart()`` before each: a sampled decode's call
+    counter starts again), ``per_batch`` launches counted; the decode that
+    ``stats()`` names."""
+    reqs = requests(BATCH)
+    dataset = request_dataset(ex, reqs)
+    ex._decode_rows = lambda rows: rows
+    try:
+        if restart:
+            restart()
+        want = ex.infer(dataset, BATCH, max_answer)
+        if restart:
+            restart()
+        with ServingEngine(ex, *ex.serve_frames, batch_size=BATCH, max_wait_ms=50,
+                           max_answer_length=max_answer, warmup=False) as engine:
+            reset_launches()
+            t0 = time.perf_counter()
+            got = answer_all(engine, reqs)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            got_launches = launches()
+            stats = engine.stats()
+    finally:
+        del ex._decode_rows
+    check_launches(f"{phase} C1 {title}", got_launches, per_batch)
+    if stats["batches"] != 1 or stats["decode"] != "eager":
+        raise AssertionError(f"{phase} C1 {title}: {stats['batches']} batches, decode "
+                             f"{stats['decode']!r} (want one eager batch)")
+    if got != want:
+        bad = sum(g != w for g, w in zip(got, want))
+        raise AssertionError(f"{phase} C1 {title}: {bad} served rows differ from infer's")
+    out = {"decode": stats["decode"], "decode_reason": stats["decode_reason"],
+           "requests": BATCH, "rows_equal_infer": True, "ms_batch_served": ms,
+           "launches": got_launches}
+    log(f"{phase} C1: {title} served through the gathered engine on the card ({card_line()}): "
+        f"decode {stats['decode_reason']!r}; {BATCH} rows equal executor.infer's, one batch, "
+        f"{ms:.3f} ms submit to answer, launches {got_launches}")
+    return out
+
+
+def beam_phase(title, make_ex, max_answer, per_batch: dict, serve_c1: bool = False) -> dict:
     """Phase 10 for one model (see the module docstring). ``make_ex(dtype)``:
-    the executor with ``isgreedy: false, num_beam: 4``."""
+    the executor with ``isgreedy: false, num_beam: 4``; ``serve_c1``: then
+    C1 on the bf16 executor."""
     phase = "phase 10"
     ex = make_ex("bfloat16")
     tb = first_device_batch(ex, variant_rows(ex))
@@ -2051,6 +2112,7 @@ def beam_phase(title, make_ex, max_answer, per_batch: dict) -> dict:
                                g_seen)
     beat = int((scores > g_scores).sum())
     profiled = profile_generate(beam, tb, beam_ms)
+    c1 = c1_serving(phase, title, ex, max_answer, per_batch) if serve_c1 else None
     del ex
     torch.cuda.empty_cache()
 
@@ -2076,7 +2138,8 @@ def beam_phase(title, make_ex, max_answer, per_batch: dict) -> dict:
            "peak_memory_gb": beam_peak, "greedy_peak_memory_gb": greedy_peak,
            "rows_beating_greedy_score": beat, "beam_of_one_rows_parted": one_parted,
            "f32_rows_parted": parted, "f32_score_max_abs_err": score_err,
-           "launches_per_batch": per_batch, **profiled}
+           "launches_per_batch": per_batch, **profiled,
+           **({"c1_served": c1} if c1 is not None else {})}
     log(f"{phase}: {title} beam {NUM_BEAM} at B={BATCH} (bf16, {card_line()}): {beam_ms:.3f} "
         f"ms/batch against "
         f"greedy {greedy_ms:.3f}; peak {beam_peak:.2f} GB against {greedy_peak:.2f}; "
@@ -2301,6 +2364,8 @@ def sampling_phase(paths, root) -> dict:
     if outside:
         raise AssertionError(f"{phase}: {outside} sampled tokens outside the top 5")
     sample_ms, greedy_ms = paired_ms(generate, build_generate_fn(model, MAX_ANSWER), tb)
+    c1 = c1_serving(phase, "LaTr-base SAMPLE (TOP_K 5)", ex, MAX_ANSWER, encode,
+                    restart=ex._generate_fns.clear)
 
     # PREDICT_SCORES through predict(), on the model's seeded weights (no checkpoint)
     ex.config.update(SAMPLE=False, PREDICT_SCORES=True, get_predict_score=False,
@@ -2324,7 +2389,7 @@ def sampling_phase(paths, root) -> dict:
     out = {"sample_ms_per_batch": sample_ms, "greedy_ms_per_batch": greedy_ms,
            "confidence_max_abs_err": conf_err, "confidences": [r["confidence"] for r in
                                                                results[:3]],
-           "launches_per_batch": encode}
+           "launches_per_batch": encode, "c1_served": c1}
     del ex, model
     torch.cuda.empty_cache()
     log(f"{phase}: LaTr-base SAMPLE ({card_line()}): TEMPERATURE 0 and TOP_K 1 give greedy's "
@@ -3787,6 +3852,92 @@ def _gate_mesh(phase, what, record, ref, lr) -> dict:
     return out
 
 
+# phase 26: serving over a mesh at full depth, from phase 25's processes
+MESH_SERVE_REQUESTS = 64
+MESH_SERVE_WAVES = [1, 3]  # then the rest: buckets 1 (2 at data 2), 4, 32
+FULL_DEPTH = dict(num_encoder_layers=T5_BASE["num_encoder_layers"],
+                  num_t5_decoder_layers=T5_BASE["num_t5_decoder_layers"],
+                  vit_num_layers=FULL["vit_num_layers"])
+
+
+def mesh_requests(n):
+    """Phase 26's requests, over the mesh fixture's 4 images."""
+    return [(float(i % 4), synthetic.QUESTIONS[i % len(synthetic.QUESTIONS)]) for i in range(n)]
+
+
+def served_reference(config, reqs) -> list:
+    """Phase 26's reference: this process's serve-mode executor on the same
+    seeded weights, its eager greedy rows of ``reqs`` in batches of BATCH
+    with every step's logits: [(rows, logits a step)] a batch."""
+    ex = serve_executor(config)
+    out = []
+    with torch.inference_mode():
+        for batch, n in batch_iterator(request_dataset(ex, reqs), BATCH, pad_final=True):
+            rows, seen = greedy_recorded(ex.model, ex._device_batch(batch), MAX_ANSWER)
+            out.append((rows[:n].tolist(), [tuple(h[:n] for h in step) for step in seen]))
+    del ex
+    gc_cuda()
+    return out
+
+
+def serve_specs(reqs, config: dict, engines=("gathered",), buckets=BUCKETS,
+                waves=MESH_SERVE_WAVES) -> list:
+    """``run_mesh``'s serve specs for phase 26: token rows, MAX_ANSWER, the
+    gathered engine in ``waves`` over ``buckets`` and the continuous engine
+    at BATCH slots (phase 15's 4 x 16)."""
+    common = dict(requests=[list(r) for r in reqs], config=config, rows=True,
+                  max_answer=MAX_ANSWER)
+    specs = {"gathered": dict(common, batch_size=BATCH, buckets=buckets, waves=waves,
+                              max_wait_ms=20),
+             "continuous": dict(common, engine="continuous", num_slots=BATCH,
+                                prefill_chunk=16, horizon=4)}
+    return [specs[e] for e in engines]
+
+
+def check_served(phase, what, served, engines, ref, per_batch: dict, decode: str) -> dict:
+    """One mesh run's served specs against ``ref`` (``served_reference``):
+    rows identical but at top-2 ties within TIE_MARGIN, every rank's
+    launches ``per_batch`` times its batches (gathered) or prefill chunks
+    (continuous), the decode ``stats()`` names; ms a batch and answers/s a
+    rank."""
+    out = {}
+    for engine, ranks in zip(engines, served):
+        rows, parted, margin = ranks[0]["answers"], 0, 0.0
+        for j, (ref_rows, seen) in enumerate(ref):
+            p, m = tie_parted(f"{phase} {what} {engine}", rows[j * BATCH:j * BATCH + len(ref_rows)],
+                              ref_rows, seen)
+            parted, margin = parted + p, max(margin, m)
+        per_rank = []
+        for r in ranks:
+            st = r["stats"]
+            units = st["batches"] if engine == "gathered" else st["prefill_chunks"]
+            check_launches(f"{phase} {what} {engine} rank {r['rank']}", r["launches"],
+                           {k: n * units for k, n in per_batch.items()})
+            if st["decode"] != decode:
+                raise AssertionError(f"{phase} {what} {engine}: decode {st['decode_reason']!r}, "
+                                     f"want {decode}")
+            busy_s = st["decode_s"] if engine == "gathered" else st["dispatch_s"]
+            steps = st["batches"] if engine == "gathered" else st["decode_dispatches"]
+            per_rank.append({"rank": r["rank"], "units": units, "launches": r["launches"],
+                             "ms_per_" + ("batch" if engine == "gathered" else "dispatch"):
+                                 1e3 * busy_s / max(steps, 1),
+                             "answers_per_s": len(rows) / r["wall_s"],
+                             "engine_start_s": r["engine_start_s"],
+                             "bucket_batches": st.get("bucket_batches")})
+        out[engine] = {"rows": len(rows), "rows_parted": parted, "parted_margin": margin,
+                       "decode_reason": ranks[0]["stats"]["decode_reason"], "ranks": per_rank,
+                       "seconds_rank0": ranks[0].get("executor_build_s", 0.0)
+                       + ranks[0]["engine_start_s"] + ranks[0]["wall_s"]}
+        log(f"phase 26: {what}, {engine} engine ({card_line()}): {len(rows)} rows, parted "
+            f"{parted} at ties (margin {margin:.2e}); decode {out[engine]['decode_reason']!r}; "
+            + "; ".join(f"rank {p['rank']}: launches {p['launches']} over {p['units']} "
+                        + ("batches" if engine == "gathered" else "prefill chunks") + ", "
+                        + ", ".join(f"{k} {v:.3f}" for k, v in p.items() if k.startswith("ms_"))
+                        + f" ms, {p['answers_per_s']:.3f} answers/s, buckets {p['bucket_batches']}"
+                        for p in per_rank))
+    return out
+
+
 def mesh_phase(root) -> dict:
     """Phase 25: the mesh lifecycle at full width, MESH_LAYERS deep, through
     ``phoneme_vqa_torch.dryrun.run_mesh`` (f32, dropout 0, batch 4): (a) one
@@ -3795,7 +3946,8 @@ def mesh_phase(root) -> dict:
     and reduce-scatter as gloo all-reduces; with 2 or 4 cards, NCCL across them
     at {model: 2} and {data: 2, model: 2, zero1: true} too); and a SaL-base
     step at {model: 2} (the head-sliced 2D tables). Each against the same
-    steps in this process."""
+    steps in this process. Phase 26 serves from the same processes after
+    their steps (module docstring), against ``served_reference``."""
     from phoneme_vqa_torch.dryrun import run_mesh
 
     phase = "phase 25"
@@ -3806,6 +3958,13 @@ def mesh_phase(root) -> dict:
     steps = 3
     latr = lambda name, **over: latr_train_config(latr_paths, os.path.join(root, name),
                                                   **keys, **over)
+    t26 = time.perf_counter()
+    reqs = mesh_requests(MESH_SERVE_REQUESTS)
+    served_ref = served_reference(Config(dict(latr("mesh_serve_ref"), **FULL_DEPTH)), reqs)
+    ref_s = time.perf_counter() - t26
+    encode = {"flash_attention": FULL["vit_num_layers"] + T5_BASE["num_encoder_layers"],
+              "sal_fused_attention": 0}
+    serving = {}
     ref = _one_process(LaTrExecutor, latr("mesh_ref"), steps, beams=2)
     lr = float(ref["ex"]._lr_schedule(0))
     out = {}
@@ -3826,10 +3985,19 @@ def mesh_phase(root) -> dict:
              ("b_data", "2 gloo processes on one card, data 2", {"data": 2}, 2, "gloo", False),
              ("b_data_zero1", "2 gloo processes on one card, data 2, ZeRO-1",
               {"data": 2, "zero1": True}, 2, "gloo", False)]
+    # phase 26's engines a run, and the decode each must report
+    serve_runs = {"nccl_model": (("gathered", "continuous"), "eager"),
+                  "b_model": (("gathered", "continuous"), "eager"),
+                  "b_data": (("gathered",), "eager")}
     for key, what, mesh, world, backend, beam in runs:
         t0 = time.perf_counter()
+        engines, decode = serve_runs.get(key, ((), None))
         record = run_mesh(dict(latr(f"mesh_{key}", MESH=mesh)), world, device=DEVICE.type,
-                          backend=backend, steps=steps, beams=2 if beam else 0, timeout=600)
+                          backend=backend, steps=steps, beams=2 if beam else 0, timeout=600,
+                          serve=serve_specs(reqs, FULL_DEPTH, engines) if engines else None)
+        if engines:
+            serving[key] = check_served("phase 26", f"LaTr-base {what}", record["serve"], engines,
+                                        served_ref, encode, decode)
         res = _gate_mesh(phase, what, record, dict(ref, beam_rows=ref["beam_rows"] if beam
                                                    else None), lr)
         for r in record["ranks"]:  # every ViT, encoder, decoder self and cross layer
@@ -3849,16 +4017,26 @@ def mesh_phase(root) -> dict:
                         f"{r['opt_state_bytes'] / 1e9:.3f} GB, launches {r['launches_per_step']}"
                         for r in record["ranks"])
             + f" ({res['seconds']:.1f} s)")
-    del ref
+    del ref, served_ref
     torch.cuda.empty_cache()
     sal_cfg = phoneme_train_config(sal_paths, os.path.join(root, "mesh_sal_ref"),
                                    EXECUTOR="SaL_Executor", MODEL_CLASS="SaL",
                                    MODEL_MOD_CONFIG_CLASS="SaL_config", **keys)
+    sal_depth = {k: FULL_DEPTH[k] for k in ("num_encoder_layers", "num_t5_decoder_layers")}
+    t0 = time.perf_counter()
+    sal_served_ref = served_reference(Config(dict(sal_cfg, **sal_depth)), reqs[:BATCH])
+    ref_s += time.perf_counter() - t0
     sal_ref = _one_process(SaLExecutor, sal_cfg, 1, beams=0)
     t0 = time.perf_counter()
     record = run_mesh(dict(sal_cfg, SAVE_PATH=os.path.join(root, "mesh_sal"),
                            MESH={"model": 2}), 2, device=DEVICE.type, backend="gloo", steps=1,
-                      beams=0, checkpoint=True, timeout=600)
+                      beams=0, checkpoint=True, timeout=600,
+                      serve=serve_specs(reqs[:BATCH], sal_depth, buckets=[BATCH], waves=()))
+    serving["sal_model2"] = check_served(
+        "phase 26", "SaL-base 2 gloo processes on one card, model 2", record["serve"],
+        ("gathered",), sal_served_ref, {"flash_attention": 0,
+                                        "sal_fused_attention": T5_BASE["num_encoder_layers"]},
+        "eager")
     res = _gate_mesh(phase, "SaL-base, model 2", record,
                      dict(sal_ref, rows=None), float(sal_ref["ex"]._lr_schedule(0)))
     per_rank = record["ranks"][0]["launches_per_step"]
@@ -3874,9 +4052,22 @@ def mesh_phase(root) -> dict:
         + "; ".join(f"rank {r['rank']}: peak {_gb(r['peak_gb'])}, optimizer state "
                     f"{r['opt_state_bytes'] / 1e9:.3f} GB" for r in record["ranks"])
         + f" ({res['seconds']:.1f} s)")
-    del sal_ref
+    del sal_ref, sal_served_ref
     torch.cuda.empty_cache()
+    seconds = ref_s + sum(e["seconds_rank0"] for run in serving.values() for e in run.values())
+    out["serving"] = dict(serving, phase26_s=seconds, reference_s=ref_s)
+    log(f"phase 26: serving over a mesh took {seconds:.1f} s ({ref_s:.1f} s of it this process's "
+        "reference rows; the rest rank 0's executor build, engine start and serving in phase "
+        f"25's processes); {json.dumps(out['serving'])}")
     return out
+
+
+def served_mesh_launches(across: dict, kernel: str) -> dict:
+    """Phase 26's launches of ``kernel`` a rank a batch (gathered) or
+    prefill chunk (continuous), by run and engine."""
+    return {f"{key} {engine}": [r["launches"][kernel] / max(r["units"], 1) for r in e["ranks"]]
+            for key, run in across["mesh"]["serving"].items() if isinstance(run, dict)
+            for engine, e in run.items()}
 
 
 def bf16_spills(logs: dict) -> list:
@@ -4069,7 +4260,7 @@ def main() -> None:
                 "PhonemeLaTr-base", lambda dtype: PhonemeLaTrExecutor(family_train_config(
                     paths, os.path.join(paths["root"], "beam"), "phoneme_latr", DTYPE=dtype,
                     SAVE=False, isgreedy=False, num_beam=NUM_BEAM, **structured_keys), "train",
-                    device=DEVICE), MAX_ANSWER, encode_step),
+                    device=DEVICE), MAX_ANSWER, encode_step, serve_c1=True),
             "phoneme_sal": beam_phase(
                 "PhonemeSaL-base", lambda dtype: PhonemeSaLExecutor(phoneme_train_config(
                     psal_paths, os.path.join(psal_paths["root"], "beam"), DTYPE=dtype, SAVE=False,
@@ -4229,6 +4420,13 @@ def main() -> None:
                                  if not r["shape"].startswith("sal")],
         "launches_per_step_per_rank_model2":
             across["mesh"]["b_model"]["ranks"][0]["launches_per_step"]["flash_attention"],
+        # C1 (phases 10 and 13): a batch of 32 served through the gathered
+        # engine's eager decode; phase 26: a batch a rank served over a mesh
+        "launches_per_batch_c1_served_beam":
+            variants["beam"]["phoneme_latr"]["c1_served"]["launches"]["flash_attention"],
+        "launches_per_batch_c1_served_sample":
+            variants["sampling"]["c1_served"]["launches"]["flash_attention"],
+        "launches_per_batch_per_rank_served_mesh": served_mesh_launches(across, "flash_attention"),
     }, {
         "name": "sal_fused_attention",
         "route": "cuda",
@@ -4268,6 +4466,8 @@ def main() -> None:
                                  if r["shape"].startswith("sal")],
         "launches_per_step_per_rank_model2_sal":
             across["mesh"]["sal_model2"]["ranks"][0]["launches_per_step"]["sal_fused_attention"],
+        "launches_per_batch_per_rank_served_mesh":
+            served_mesh_launches(across, "sal_fused_attention"),
     }]
     log(json.dumps({"serving": {"latr": served, "sal": sal_served, "phoneme_sal": psal_served,
                                 "phoneme_latr": platr_served, "prestu": prestu_served},

@@ -21,6 +21,9 @@ be exactly N x M: every process is on the mesh.
   decoder's ``out`` and FFN), never fewer of the large ones.
 * ZeRO-1 (``MESH: {zero1: true}``): optimizer moments split over the
   ``data`` axis on a dimension the plan left whole (``parallel/optimizer.py``).
+* Serving (``serving/engine.py``, ``serving/continuous.py``): a served
+  batch's bucket is a multiple of ``data`` and each data rank decodes its
+  block of the bucket's rows (:func:`serve_rows`).
 """
 
 from __future__ import annotations
@@ -130,6 +133,20 @@ def shard_rows(mesh: Optional[Mesh], n_rows: int) -> Optional[slice]:
         return None
     size = n_rows // mesh.dp
     return slice(mesh.dp_rank * size, (mesh.dp_rank + 1) * size)
+
+
+def serve_rows(mesh: Optional[Mesh], n_rows: int, bucket: int) -> slice:
+    """This data rank's slice of a served batch of ``n_rows`` requests: the
+    batch rides a ``bucket`` of rows, a multiple of the data axis (the
+    engines round their buckets up to one), split over the axis by
+    :func:`shard_rows`; the rank's block is cut to the requests there are
+    (it may hold none), and the loader pads it back to ``bucket / data``
+    rows, as :func:`pad_batch_to_devices` pads a batch."""
+    dp = 1 if mesh is None else mesh.dp
+    if bucket % dp:
+        raise ValueError(f"bucket {bucket} does not divide the data axis ({dp})")
+    block = shard_rows(mesh, bucket) or slice(0, bucket)
+    return slice(min(block.start, n_rows), min(block.stop, n_rows))
 
 
 def shard_batch(mesh: Optional[Mesh], batch: dict) -> dict:

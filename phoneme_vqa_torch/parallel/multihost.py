@@ -14,6 +14,7 @@ CPU or to a world of one.
 from __future__ import annotations
 
 import os
+from datetime import timedelta
 
 import torch
 import torch.distributed as dist
@@ -23,9 +24,12 @@ from ..utils.logger import get_logger
 log = get_logger(__name__)
 
 
-def maybe_initialize_distributed(config=None, device="cuda") -> bool:
+def maybe_initialize_distributed(config=None, device="cuda", timeout_s: float = None) -> bool:
     """Join the process group a launcher describes. Returns whether a
-    group is up (started here or before)."""
+    group is up (started here or before). ``timeout_s`` bounds every
+    collective of the group (a rank that died or hangs fails its peers' next
+    collective after at most that long; the serve CLI passes
+    ``--group-timeout``); None keeps torch's default."""
     world = int(os.environ.get("WORLD_SIZE", "1"))
     want = bool(config and config.get("MULTIHOST")) or world > 1
     if not want:
@@ -44,8 +48,9 @@ def maybe_initialize_distributed(config=None, device="cuda") -> bool:
         backend = "nccl"
     else:
         backend = "gloo"
+    kw = {} if timeout_s is None else {"timeout": timedelta(seconds=float(timeout_s))}
     dist.init_process_group(backend, init_method=f"tcp://{addr}:{port}", rank=rank,
-                            world_size=world)
+                            world_size=world, **kw)
     log.info(f"# torch.distributed up: rank {rank}/{world} ({backend}, local rank {local_rank})")
     return True
 

@@ -18,9 +18,12 @@ tp_plan``):
    update on its 1/data slice of the master, a view);
 4. ZeRO slices are all-gathered back into the masters.
 
-Adafactor's factored statistics of a split parameter reduce over the
-``model`` axis (``Adafactor.tp_group``); adafactor with ZeRO-1 is not
-ported (ROADMAP A15b).
+Adafactor's factored statistics of a split parameter reduce over the axis
+that splits each of its dimensions (``Adafactor.view_splits``): the
+``model`` axis for a tensor-parallel split, the ``data`` axis for a ZeRO-1
+one. Under ZeRO-1 its row and column moments are split over the data axis
+with the parameter, but for the moment of the dimension ZeRO splits, which
+is the mean over that dimension and is kept whole.
 """
 
 from __future__ import annotations
@@ -44,14 +47,10 @@ class MeshOptimizer:
         self.grad_clip, tx.grad_clip = tx.grad_clip, None  # the clip runs here, over the mesh
         self.zero1 = mesh.zero1 and mesh.dp > 1
         self.adafactor = isinstance(tx, Adafactor)
-        if self.adafactor and self.zero1:
-            raise NotImplementedError("MESH zero1 with OPTIMIZER adafactor is not ported yet "
-                                      "(ROADMAP A15b)")
         self.zero_dims: Dict[str, int] = {}
         if self.adafactor:
-            tx.tp_group = mesh.tp_group
-            tx.view_split = {n: self._view_dim(n, d) for n, d in self.split.items()}
             tx.global_shapes = {n: tuple(self._view_shape(n, s)) for n, s in full_shapes.items()}
+            self._set_view_splits()
 
     def trainable(self, name: str) -> bool:
         return self.tx.trainable(name)
@@ -59,9 +58,26 @@ class MeshOptimizer:
     # -- layouts --------------------------------------------------------------
 
     def _view_dim(self, name: str, dim: int) -> int:
-        """A torch-layout split dimension in adafactor's flax view."""
-        kernel = name in self.tx.kernels
-        return 1 - dim if kernel and len(self.full_shapes[name]) == 2 else dim
+        """A torch-layout dimension in adafactor's flax view ((in, out), or
+        (kh, kw, in, out) for a conv's (out, in, kh, kw))."""
+        if name not in self.tx.kernels:
+            return dim
+        return 1 - dim if len(self.full_shapes[name]) == 2 else (3, 2, 0, 1)[dim]
+
+    def _view_axes(self, name: str) -> Dict[int, str]:
+        """Adafactor's view dims of ``name`` that are split -> the axis
+        (``model`` or ``data``)."""
+        axes = {}
+        if name in self.split:
+            axes[self._view_dim(name, self.split[name])] = "model"
+        if name in self.zero_dims:
+            axes[self._view_dim(name, self.zero_dims[name])] = "data"
+        return axes
+
+    def _set_view_splits(self) -> None:
+        groups = {"model": self.mesh.tp_group, "data": self.mesh.dp_group}
+        self.tx.view_splits = {n: {d: groups[a] for d, a in self._view_axes(n).items()}
+                               for n in set(self.split) | set(self.zero_dims)}
 
     def _view_shape(self, name: str, shape):
         if name not in self.tx.kernels:
@@ -80,17 +96,15 @@ class MeshOptimizer:
 
     def _state_dims(self, part: str, name: str) -> Tuple[Optional[int], Optional[int]]:
         """(model-axis dim, data-axis dim) of a state tensor of ``name``."""
-        split = self.split.get(name)
         if not self.adafactor:
-            return split, self.zero_dims.get(name)
-        if split is None:
-            return None, None
-        vs = self.tx.view_split[name]
-        if part == "v":
-            return vs, None
-        d1, d0 = self.tx._factored_dims(self.tx.global_shapes[name])
-        gone = d0 if part == "v_row" else d1
-        return (None if vs == gone else vs - (vs > gone)), None
+            return self.split.get(name), self.zero_dims.get(name)
+        axes = self._view_axes(name)
+        if part != "v":  # a factored moment: the mean over one view dim
+            d1, d0 = self.tx._factored_dims(self.tx.global_shapes[name])
+            gone = d0 if part == "v_row" else d1
+            axes = {d - (d > gone): a for d, a in axes.items() if d != gone}
+        dims = {a: d for d, a in axes.items()}
+        return dims.get("model"), dims.get("data")
 
     # -- the step -------------------------------------------------------------
 
@@ -101,6 +115,8 @@ class MeshOptimizer:
                 d = self._zero_dim(n, p.shape) if self.trainable(n) else None
                 if d is not None:
                     self.zero_dims[n] = d
+            if self.adafactor:
+                self._set_view_splits()
         return self.tx.init({n: self._part(n, p) for n, p in params.items()})
 
     def _global_norm(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:

@@ -22,20 +22,41 @@ Usage:
 
 The device is ``--device`` (default: the card), never the preset's
 ``DEVICE``. A preset is YAML or, where PyYAML is missing, JSON.
+
+Over a mesh (a preset with ``MESH: {data, model}``)::
+
+    torchrun --nproc-per-node N -m phoneme_vqa_torch.serve --config-file F ...
+
+launches data x model processes (NCCL a card; gloo with ``--device cpu``).
+Every rank builds the executor and the engine; rank 0 runs the stdin or
+HTTP front end, the reload watcher and the SIGTERM drain, the other ranks
+follow it (``serving/engine.py``) and ignore SIGTERM: on SIGTERM (which
+torchrun sends every rank) rank 0 drains, broadcasts the stop, and every
+rank exits 0. ``--group-timeout`` bounds every collective of the mesh: a
+rank that died fails rank 0's next one within it, and the engine turns
+unhealthy (``/healthz`` 503). On the card rank 0 builds (or, with
+``--aot``, loads or builds and packs) the kernels while the other ranks
+wait at a barrier, then load them: no two ranks write the build directory
+at once.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import signal
 import sys
 import threading
 import time
 
+import torch.distributed as dist
+
 from . import train  # noqa: F401  (registers the executors)
 from .config import get_config
 from .ops import _build
+from .parallel.multihost import maybe_initialize_distributed
 from .serving import ContinuousEngine, ServingEngine, aot
+from .serving.engine import GROUP_TIMEOUT_S, control_link
 from .train import lora as lora_mod
 from .train.checkpoint import CheckpointManager
 from .utils.logger import get_logger
@@ -104,6 +125,10 @@ def parse_args(argv=None):
                    help="continuous mode: decode steps per dispatch (one graph replay)")
     p.add_argument("--prefill-chunk", type=int, default=DEFAULT_PREFILL_CHUNK,
                    help="continuous mode: rows per prefill")
+    p.add_argument("--group-timeout", type=float, default=GROUP_TIMEOUT_S, metavar="SECONDS",
+                   help="over a mesh (torchrun): the timeout of every collective; a rank "
+                        "that died fails rank 0's next one within it and the engine turns "
+                        "unhealthy")
     p.add_argument("--spec", type=int, default=None, metavar="K",
                    help="continuous mode: per-slot speculative decoding with K-token "
                         "prompt-lookup windows (identical answers). Defaults to the config's "
@@ -149,14 +174,26 @@ def build_engine(args):
     if args.adapter and args.continuous:
         raise SystemExit("--continuous does not support --adapter")
     config = get_config(args.config_file)
+    # under torchrun: the process group (a no-op in a single process)
+    maybe_initialize_distributed(config, args.device, timeout_s=args.group_timeout)
+    mesh = dist.is_initialized() and dist.get_world_size() > 1
     # serve mode: tokenizers + feature stores + model only; no QA CSV read
     ex = EXECUTORS.get(config.EXECUTOR)(config, mode="serve", device=args.device)
     aot_dir = args.aot if ex.device.type == "cuda" else None
     if args.aot and aot_dir is None:
         log.warning("(!) --aot ignored: the CPU path builds no kernels")
-    loaded = aot.load(aot_dir) if aot_dir else []
-    if args.prime and ex.device.type == "cuda":
-        _build.build(*aot.KERNELS)
+    link = control_link(args.group_timeout) if mesh else None
+    if link is None or dist.get_rank() == 0:
+        loaded = aot.load(aot_dir, mesh=ex.mesh) if aot_dir else []
+        if ex.device.type == "cuda" and (args.prime or aot_dir or link is not None):
+            _build.build(*aot.KERNELS)
+        # (re)pack when the store does not hold every kernel built now
+        if aot_dir and not set(aot.built()) <= set(loaded):
+            aot.pack(aot_dir, mesh=ex.mesh)
+    if link is not None:  # the other ranks wait for rank 0's kernels
+        link.barrier()
+        if dist.get_rank() != 0 and aot_dir:
+            aot.load(aot_dir, mesh=ex.mesh)
     if args.ckpt != "none":
         ex._load_trained_checkpoint(args.ckpt)
     ocr_store, obj_store = ex.serve_frames
@@ -180,7 +217,7 @@ def build_engine(args):
             prefill_chunk=args.prefill_chunk, horizon=args.horizon, max_answer_length=max_len,
             max_queue=args.max_queue, default_deadline_s=args.deadline_s,
             access_log=access_log, confidence=args.confidence, cache_size=args.cache_size,
-            spec_k=spec_k)
+            spec_k=spec_k, group_timeout_s=args.group_timeout)
     else:
         engine = ServingEngine(
             ex, ocr_store, obj_store, batch_size=args.batch_size,
@@ -188,10 +225,7 @@ def build_engine(args):
             max_queue=args.max_queue, cache_size=args.cache_size,
             confidence=args.confidence, default_deadline_s=args.deadline_s,
             adapters=adapters or None, buckets=parse_buckets(args.buckets, args.batch_size),
-            access_log=access_log)
-    # (re)pack when the store does not hold every kernel built now
-    if aot_dir and not set(aot.built()) <= set(loaded):
-        aot.pack(aot_dir)
+            access_log=access_log, group_timeout_s=args.group_timeout)
     return engine
 
 
@@ -326,11 +360,20 @@ def serve_http(engine, port: int) -> None:
         log.info(f"## serving stats: {engine.stats()}")
 
 
+class _Terminated(Exception):
+    """SIGTERM while serving stdin: stop reading, drain, exit 0."""
+
+
 def serve_stdin(engine) -> None:
     out_lock = threading.Lock()
     # in flight only: done futures discard themselves
     pending = set()
-    log.info("## SERVING (ctrl-d to drain and exit) ...")
+    log.info("## SERVING (ctrl-d, or SIGTERM, to drain and exit) ...")
+
+    def terminate(*_):
+        raise _Terminated
+
+    signal.signal(signal.SIGTERM, terminate)
 
     def respond(req_id, fut):
         try:
@@ -342,22 +385,26 @@ def serve_stdin(engine) -> None:
         with out_lock:
             print(json.dumps(obj, ensure_ascii=False), flush=True)
 
-    for i, raw in enumerate(sys.stdin):
-        raw = raw.strip()
-        if not raw:
-            continue
-        req = None
-        try:
-            req = json.loads(raw)
-            fut = engine.submit(req["image_id"], str(req["question"]),
-                                deadline_s=req.get("deadline_s"), adapter=req.get("adapter"))
-        except Exception as e:
-            rid = req.get("id", i) if isinstance(req, dict) else i
-            respond(rid, _failed(e))
-            continue
-        req_id = req.get("id", i)
-        pending.add(fut)
-        fut.add_done_callback(lambda f, rid=req_id: (respond(rid, f), pending.discard(f)))
+    try:
+        for i, raw in enumerate(sys.stdin):
+            raw = raw.strip()
+            if not raw:
+                continue
+            req = None
+            try:
+                req = json.loads(raw)
+                fut = engine.submit(req["image_id"], str(req["question"]),
+                                    deadline_s=req.get("deadline_s"), adapter=req.get("adapter"))
+            except Exception as e:
+                rid = req.get("id", i) if isinstance(req, dict) else i
+                respond(rid, _failed(e))
+                continue
+            req_id = req.get("id", i)
+            pending.add(fut)
+            fut.add_done_callback(lambda f, rid=req_id: (respond(rid, f), pending.discard(f)))
+    except _Terminated:
+        log.info("## SIGTERM: draining the requests in flight")
+    signal.signal(signal.SIGTERM, signal.SIG_DFL)
     for fut in list(pending):  # drain before exit
         try:
             fut.result()
@@ -375,11 +422,25 @@ def _failed(e):
     return f
 
 
+def follow(engine) -> None:
+    """A rank other than 0 of a serving mesh: the engine's follower loop
+    until rank 0's stop. SIGTERM (torchrun sends it to every rank) is left
+    to rank 0, which drains and then stops every rank."""
+    signal.signal(signal.SIGTERM, lambda *_: log.info("## SIGTERM: rank 0 drains and stops "
+                                                      "this rank"))
+    log.info(f"## rank {dist.get_rank()}: following rank 0")
+    engine.follow()
+    log.info(f"## serving stats: {engine.stats()}")
+
+
 def main(argv=None):
     args = parse_args(argv)
     t0 = time.monotonic()
     engine = build_engine(args)
     log.info(f"## ready to answer in {time.monotonic() - t0:.1f} s")
+    if dist.is_initialized() and dist.get_rank() != 0:
+        follow(engine)  # --prime too: rank 0's stop ends it
+        return
     if args.prime:
         engine.stop()
         log.info("## primed (kernels built, decode graphs captured"

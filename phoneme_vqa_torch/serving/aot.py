@@ -14,6 +14,15 @@ directory, where ``_build.build`` finds them and starts no ``nvcc``; every
 process still captures its own graphs (README). A store that is missing,
 unreadable, or packed for another environment or other sources is a clean
 miss: the kernels build as usual and ``pack`` (re)writes the store.
+
+Over a serving mesh (``serve.py`` under torchrun) rank 0 loads the store,
+builds what it lacks and packs, while the other ranks wait at a barrier and
+then load; a library already in the build directory is not copied again,
+so no two ranks write it at once. The manifest records the mesh the store
+was packed under (``data``, ``model``, ``world``), as the JAX store records
+its device ids. The libraries do not depend on the mesh (a rank runs the
+same kernels on its head slices or its rows), so a store packed under
+another mesh, or none, still loads: the difference is logged, not a miss.
 """
 
 from __future__ import annotations
@@ -75,11 +84,21 @@ def built(names: Sequence[str] = KERNELS, build_dir: str = None) -> List[str]:
     return [n for n in names if os.path.isfile(os.path.join(build_dir, library_file(n)))]
 
 
-def load(path: str, build_dir: str = None) -> List[str]:
+def mesh_record(mesh) -> Optional[Dict[str, int]]:
+    """The manifest's record of a serving mesh (``parallel/mesh.py: Mesh``),
+    or None for one process."""
+    if mesh is None:
+        return None
+    return {"data": int(mesh.dp), "model": int(mesh.tp), "world": int(mesh.dp * mesh.tp)}
+
+
+def load(path: str, build_dir: str = None, mesh=None) -> List[str]:
     """Copy the libraries of the store at ``path`` into ``build_dir`` and
     return the kernels loaded, or ``[]`` (with the reason logged) when the
     store is absent, unreadable or packed for another environment. A
-    library built from other sources is skipped."""
+    library built from other sources is skipped; one already in
+    ``build_dir`` is kept as it is. ``mesh``: the serving mesh, compared
+    with the manifest's (logged only)."""
     build_dir = build_dir or _build.BUILD_DIR
     manifest_path = os.path.join(path, _MANIFEST)
     if not os.path.exists(manifest_path):
@@ -98,6 +117,10 @@ def load(path: str, build_dir: str = None) -> List[str]:
         log.warning(f"(!) AOT store at {path} was packed for a different environment "
                     f"({stale}): ignoring it; the kernels build and the store is re-packed")
         return []
+    if manifest.get("mesh") != mesh_record(mesh):
+        log.info(f"## AOT store at {path} was packed under mesh {manifest.get('mesh')}, this "
+                 f"process serves under {mesh_record(mesh)}: the kernel libraries do not depend "
+                 "on the mesh, loading them")
     os.makedirs(build_dir, exist_ok=True)
     loaded = []
     for name, fname in manifest.get("kernels", {}).items():
@@ -108,6 +131,9 @@ def load(path: str, build_dir: str = None) -> List[str]:
         if not os.path.isfile(src):
             log.warning(f"(!) AOT store: {src} is missing: skipped")
             continue
+        if os.path.isfile(os.path.join(build_dir, fname)):  # the same source hash
+            loaded.append(name)
+            continue
         tmp = os.path.join(build_dir, fname + ".tmp")
         shutil.copyfile(src, tmp)
         os.replace(tmp, os.path.join(build_dir, fname))
@@ -117,16 +143,18 @@ def load(path: str, build_dir: str = None) -> List[str]:
     return loaded
 
 
-def pack(path: str, build_dir: str = None) -> List[str]:
+def pack(path: str, build_dir: str = None, mesh=None) -> List[str]:
     """Write the built kernel libraries of ``build_dir`` and the manifest
-    into ``path``; return the kernels packed."""
+    (with ``mesh``, the serving mesh) into ``path``; return the kernels
+    packed."""
     build_dir = build_dir or _build.BUILD_DIR
     names = built(KERNELS, build_dir)
     os.makedirs(path, exist_ok=True)
     for name in names:
         fname = library_file(name)
         shutil.copyfile(os.path.join(build_dir, fname), os.path.join(path, fname))
-    manifest = {"env": env_fingerprint(), "kernels": {n: library_file(n) for n in names}}
+    manifest = {"env": env_fingerprint(), "mesh": mesh_record(mesh),
+                "kernels": {n: library_file(n) for n in names}}
     tmp = os.path.join(path, _MANIFEST + ".tmp")
     with open(tmp, "w", encoding="utf-8") as f:
         json.dump(manifest, f, indent=1)

@@ -27,6 +27,17 @@ three heads a step and a slot stops at its onset's EOS. Greedy only; f32
 answers equal ``executor.infer``'s. In bf16 the one-token window step sums
 in another order than the batch decode's step, so a near-tie argmax may
 part (PERF.md: the pool decode's 1.29e-2 logit gap).
+
+Over a mesh (as ``serving/engine.py`` describes it): rank 0 plans each
+step of the worker loop (a reload at the drain barrier, the chunks to
+admit with their slots, the slots to kill, whether to dispatch) and
+broadcasts the plan; every rank applies it (:meth:`ContinuousEngine._execute`).
+Each data rank owns ``num_slots / data`` slots (``num_slots`` must divide
+the axis) and featurizes and prefills the chunks admitted into them; the
+model ranks of a data rank hold the same slots at ``H / model`` heads each.
+Every rank dispatches together, eagerly (``serving/engine.py:
+MESH_EAGER``), and the horizon's tokens come back to rank 0 over the
+link's gloo data group. The other ranks run :meth:`ContinuousEngine.follow`.
 """
 
 from __future__ import annotations
@@ -40,6 +51,7 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.loader import batch_iterator
 from ..decode.pool import CACHE_KEYS
@@ -47,12 +59,16 @@ from ..decode.speculative import draft_from_pair
 from ..models.generate import decode_token_ids
 from ..utils.logger import get_logger
 from .engine import (
+    GROUP_TIMEOUT_S,
+    MESH_EAGER,
     DeviceStream,
     _Request,
     coerce_image_id,
+    control_link,
     engine_device,
     featurize_requests,
     prometheus_text,
+    serving_mesh,
     store_key_type,
 )
 from .encoding_cache import EncodingCache
@@ -108,6 +124,8 @@ class ContinuousEngine:
         ``stop()`` returning. 0 disables. Deadlines are also enforced
         MID-DECODE: a slotted request whose deadline passes is expired at
         the next dispatch boundary and its slot deactivated.
+    group_timeout_s: over a mesh, the control group's timeout (as
+        ``ServingEngine``'s).
     """
 
     def __init__(
@@ -127,6 +145,7 @@ class ContinuousEngine:
         cache_size: int = 0,
         stall_timeout_s: float = 300.0,
         spec_k: int = 0,
+        group_timeout_s: float = GROUP_TIMEOUT_S,
     ):
         model = executor.model
         if not hasattr(type(model), "decode_step_k"):
@@ -137,6 +156,15 @@ class ContinuousEngine:
         self.ocr_store = ocr_store
         self.obj_store = obj_store
         self.S = int(num_slots)
+        self._mesh = serving_mesh(executor)
+        self._link = control_link(group_timeout_s) if self._mesh is not None else None
+        self._leader = self._mesh is None or dist.get_rank() == 0
+        self._dp = 1 if self._mesh is None else self._mesh.dp
+        self._dp_rank = 0 if self._mesh is None else self._mesh.dp_rank
+        if self.S % self._dp:
+            raise ValueError(f"num_slots {self.S} must divide the mesh's data axis ({self._dp}): "
+                             "each data rank owns num_slots / data slots")
+        self.S_local = self.S // self._dp  # slots on this rank's device, + a trash slot
         self.C = int(prefill_chunk)
         self.horizon = int(horizon)
         self.max_answer_length = int(max_answer_length)
@@ -169,6 +197,7 @@ class ContinuousEngine:
         self._expired = 0
         self._service_ewma = 0.0  # slotted->finished seconds, viability gate
         self._dispatches = 0
+        self._dispatch_s = 0.0  # seconds this rank spent in dispatches
         self._prefills = 0  # chunks prefilled
         self._latencies_ms: list = []
         self._slot_steps = 0  # slot-steps decoded (occupancy numerator)
@@ -198,6 +227,14 @@ class ContinuousEngine:
         # prefill takes the vit_encodings input
         self._enc_cache = EncodingCache.maybe_build(executor)
         self._stream = DeviceStream(engine_device(executor))
+        self._captures = self._stream.stream is not None and self._mesh is None
+        self.decode_reason = (
+            MESH_EAGER if self._mesh is not None else "graphs: each dispatch replayed from its "
+            "CUDA graph" if self._captures else "graphs: the dispatch's operations, run eagerly "
+            "off the card")
+        if self._mesh is not None:
+            log.info(f"## continuous serving over a mesh ({self._mesh.describe()}), "
+                     f"{self.S_local} of {self.S} slots a data rank; decode {self.decode_reason}")
         self._graph = None
         self._graph_pool = None
         self._state = None  # the slot state and the dispatch's static inputs
@@ -214,14 +251,21 @@ class ContinuousEngine:
         self._live: List[bool] = [False] * self.S
         self._free = list(range(self.S))
         self._waiting: List[_Request] = []
-        self._staged: List[tuple] = []  # (cache, enc_mask, src, valid, slot_ids)
+        # rank 0: the global slots of each chunk staged on each data rank,
+        # in its order; every rank: its own staged chunks (cache, enc_mask,
+        # src, local slot ids)
+        self._staged_slots: List[List[List[int]]] = [[] for _ in range(self._dp)]
+        self._staged: List[tuple] = []
+        self._stage_errors: dict = {}  # global slot -> why its chunk did not featurize
         self._kill_pending: set = set()  # slot ids expired since the last dispatch
-        if self._stream.stream is not None:
-            warmup = True  # capture before the worker can touch the stream
+        if self._stream.stream is not None or self._mesh is not None:
+            warmup = True  # capture before the worker can touch the stream; in step
         if warmup:
             with self._stream.scope():
                 self._warmup()
             self._stream.synchronize()
+        if not self._leader:  # a follower: no worker, follow() runs its loop
+            return
         self._worker = threading.Thread(target=self._run, daemon=True,
                                         name="continuous-worker")
         self._worker.start()
@@ -271,7 +315,7 @@ class ContinuousEngine:
         self.executor.model.eval()
         cache, full_bias, enc_mask, src = self._prefill(
             self._chunk_batch([self._dummy_request()]))
-        s1, dev = self.S + 1, enc_mask.device
+        s1, dev = self.S_local + 1, enc_mask.device
 
         def slots_of(x, axis):  # chunk rows -> S + 1 slot rows
             shape = list(x.shape)
@@ -289,7 +333,7 @@ class ContinuousEngine:
         st["chunk_ck"] = torch.empty_like(cache["ck"])
         st["chunk_cv"] = torch.empty_like(cache["cv"])
         st["chunk_mask"] = torch.empty_like(enc_mask)
-        st["slot_ids"] = torch.full((self.C,), self.S, dtype=torch.long, device=dev)
+        st["slot_ids"] = torch.full((self.C,), self.S_local, dtype=torch.long, device=dev)
         st["kill"] = torch.zeros(s1, dtype=torch.bool, device=dev)
         st["full_bias"] = None if full_bias is None else full_bias.clone()
         k = max(self.spec_k, 1)
@@ -306,18 +350,18 @@ class ContinuousEngine:
         st["lps"] = torch.zeros((self.horizon, s1) + ((k,) if self.spec_k > 1 else ()),
                                 dtype=torch.float32, device=dev)
         self._state = st
-        self._load_chunk(cache, enc_mask, src, [])
+        self._load_chunk(cache, enc_mask, src, [], [])
         self._dummy = (cache, enc_mask, src)
-        if dev.type == "cuda":
+        if self._captures:
             self._graph_pool = torch.cuda.graph_pool_handle()
             self._graph = capture(self._advance, self._graph_pool)
         else:
             self._advance()
         self.capture_s = time.perf_counter() - t0
 
-    def _load_chunk(self, cache, enc_mask, src, slots: List[int]) -> None:
-        """A prefilled chunk and its slots into the dispatch's static inputs
-        (pad rows -> the trash slot S), and the pending kills."""
+    def _load_chunk(self, cache, enc_mask, src, slots: List[int], kills: List[int]) -> None:
+        """A prefilled chunk and its (local) slots into the dispatch's static
+        inputs (pad rows -> the trash slot), and the slots to kill."""
         st = self._state
         st["chunk_ck"].copy_(cache["ck"])
         st["chunk_cv"].copy_(cache["cv"])
@@ -325,12 +369,11 @@ class ContinuousEngine:
         if src is not None:
             st["chunk_src"].copy_(src[0])
             st["chunk_valid"].copy_(src[1])
-        ids = np.full((self.C,), self.S, np.int64)
+        ids = np.full((self.C,), self.S_local, np.int64)
         ids[: len(slots)] = slots
         st["slot_ids"].copy_(torch.from_numpy(ids))
-        kill = np.zeros((self.S + 1,), bool)
-        kill[list(self._kill_pending)] = True
-        self._kill_pending.clear()
+        kill = np.zeros((self.S_local + 1,), bool)
+        kill[list(kills)] = True
         st["kill"].copy_(torch.from_numpy(kill))
 
     def _advance(self) -> None:
@@ -354,7 +397,7 @@ class ContinuousEngine:
             st["valid"].index_copy_(0, slots, st["chunk_valid"])
             st["prev"].index_fill_(0, slots, self._bos)
         st["active"].index_fill_(0, slots, True)
-        st["active"][self.S:].fill_(False)  # the trash slot never decodes (a kernel, no copy)
+        st["active"][self.S_local:].fill_(False)  # the trash slot never decodes (a kernel, no copy)
         step = self._spec_step if self.spec_k > 1 else self._step
         for h in range(self.horizon):
             step(h)
@@ -432,23 +475,24 @@ class ContinuousEngine:
         st["n_eff"][h] = n_eff
 
     @torch.inference_mode()
-    def _dispatch(self, staged):
+    def _dispatch(self, staged, kills=()):
         """Load the staged chunk (or the dummy one, into the trash slot) and
-        run one dispatch; the horizon's (tokens, log-probs, accepted counts
-        or None) on the host."""
+        the (local) slots to kill, and run one dispatch; the horizon's
+        (tokens, log-probs, accepted counts or None) of this rank's slots on
+        the host."""
         if staged is None:
             cache, enc_mask, src = self._dummy
-            self._load_chunk(cache, enc_mask, src, [])
+            self._load_chunk(cache, enc_mask, src, [], kills)
         else:
             cache, enc_mask, src, slots = staged
-            self._load_chunk(cache, enc_mask, src, slots)
+            self._load_chunk(cache, enc_mask, src, slots, kills)
         if self._graph is not None:
             self._graph.replay()
         else:
             self._advance()
-        st = self._state
-        neff = st["n_eff"].cpu().numpy() if self.spec_k > 1 else None
-        return st["toks"].cpu().numpy(), st["lps"].cpu().numpy(), neff
+        st, n = self._state, self.S_local
+        neff = st["n_eff"][:, :n].cpu().numpy() if self.spec_k > 1 else None
+        return st["toks"][:, :n].cpu().numpy(), st["lps"][:, :n].cpu().numpy(), neff
 
     # -- client surface ---------------------------------------------------------
 
@@ -514,7 +558,11 @@ class ContinuousEngine:
                 "failed": self._failed,
                 "expired": self._expired,
                 "unhealthy": self._unhealthy,
+                "decode": self.decode_reason.split(":")[0],
+                "decode_reason": self.decode_reason,
+                **({"mesh": self._mesh.describe()} if self._mesh is not None else {}),
                 "decode_dispatches": self._dispatches,
+                "dispatch_s": self._dispatch_s,
                 "prefill_chunks": self._prefills,
                 "reloads": self._reloads,
                 "cache_hits": self._cache_hits,
@@ -565,28 +613,27 @@ class ContinuousEngine:
         log.info(f"## hot-reloaded {loadtype}_ckp in {ms:.0f} ms (continuous)")
         return {"reloaded": loadtype, "ms": round(ms, 1)}
 
-    def _finish_reload(self):
-        """Runs on the worker thread at the drain barrier (no live slots, no
-        staged chunks): load the weights in place, then the relative bias
-        and the dummy chunk they determine."""
-        loadtype, ev, err = self._reload_req
+    def _reload_weights(self, loadtype: str) -> Optional[Exception]:
+        """Every rank, at the drain barrier (no live slots, no staged
+        chunks): load the weights in place, then the relative bias and the
+        dummy chunk they determine (whose prefill every rank runs, a failed
+        load or not). Returns the load's error, or None."""
+        err = None
         try:
             self.executor._load_trained_checkpoint(loadtype)
             self._stream.synchronize()
             check_params_in_place(self.executor.model, self._param_addresses)
-            if self._enc_cache is not None:
-                self._enc_cache.flush()  # stale under the new ViT weights
-            cache, full_bias, enc_mask, src = self._prefill(
-                self._chunk_batch([self._dummy_request()]))
-            if full_bias is not None:
-                with torch.inference_mode():  # the state's tensors are inference tensors
-                    self._state["full_bias"].copy_(full_bias)
-            self._dummy = (cache, enc_mask, src)
         except Exception as e:  # surfaced to the caller
-            err.append(e)
-        finally:
-            self._reload_req = None
-            ev.set()
+            err = e
+        if self._enc_cache is not None:
+            self._enc_cache.flush()  # stale under the new ViT weights
+        cache, full_bias, enc_mask, src = self._prefill(
+            self._chunk_batch([self._dummy_request()]))
+        if full_bias is not None:
+            with torch.inference_mode():  # the state's tensors are inference tensors
+                self._state["full_bias"].copy_(full_bias)
+        self._dummy = (cache, enc_mask, src)
+        return err
 
     @property
     def unhealthy_reason(self) -> Optional[str]:
@@ -601,6 +648,8 @@ class ContinuousEngine:
         with self._lock:
             already = self._stopped
             self._stopped = True
+        if not self._leader:  # a follower stops at rank 0's stop message
+            return
         if already and not self._worker.is_alive():
             return
         while self._worker.is_alive():
@@ -699,8 +748,12 @@ class ContinuousEngine:
             except queue.Empty:
                 return True
 
-    def _admit(self):
-        """Prefill waiting requests into free slots, chunk by chunk."""
+    def _plan_admissions(self) -> list:
+        """Rank 0: waiting requests admitted into free slots, a chunk of up
+        to ``prefill_chunk`` at a time, each in one data rank's slots (at
+        most two chunks staged a data rank); their slots are taken here and
+        the chunks featurized and prefilled by their data rank when the plan
+        runs. Returns [(data rank, requests, global slots)]."""
         now = time.monotonic()
         live = []
         n_expired = 0
@@ -723,31 +776,62 @@ class ContinuousEngine:
             with self._stats_lock:
                 self._expired += n_expired
         self._waiting = live
-        while self._waiting and self._free and len(self._staged) < 2:
-            take = min(len(self._waiting), len(self._free), self.C)
-            reqs, self._waiting = self._waiting[:take], self._waiting[take:]
-            try:
-                mb = self._chunk_batch(reqs)
-            except Exception as e:
-                log.warning(f"featurization of {len(reqs)} requests failed: {e!r}")
-                for r in reqs:
-                    self._record(r, "error", error=repr(e))
-                    r.future.set_exception(e)
-                with self._stats_lock:
-                    self._failed += len(reqs)
-                continue
-            with self._watchdog.guard("prefill dispatch"):
-                cache, _, enc_mask, src = self._prefill(mb)
-            slots = [self._free.pop() for _ in range(take)]
-            self._staged.append((cache, enc_mask, src, slots))
+        chunks, admitted = [], True
+        while self._waiting and admitted:
+            admitted = False
+            for d in range(self._dp):
+                free = [s for s in self._free if s // self.S_local == d]
+                if not self._waiting or not free or len(self._staged_slots[d]) >= 2:
+                    continue
+                take = min(len(self._waiting), len(free), self.C)
+                reqs, self._waiting = self._waiting[:take], self._waiting[take:]
+                slots = free[-take:][::-1]
+                for s in slots:
+                    self._free.remove(s)
+                self._staged_slots[d].append(slots)
+                t_ins = time.monotonic()
+                for s, r in zip(slots, reqs):
+                    r.t_slotted = t_ins
+                    self._slot_req[s] = r
+                    self._slot_toks[s] = []
+                    self._slot_lps[s] = []
+                chunks.append((d, reqs, slots))
+                admitted = True
+        return chunks
+
+    def _stage(self, keys: list, slots: List[int]) -> None:
+        """This data rank: featurize and prefill a planned chunk (the
+        attention kernels launch here) and stage it for a later dispatch.
+        A chunk that does not featurize stages the dummy one instead (into
+        the trash slot, so every rank keeps one order of staged chunks); its
+        slots' error goes back to rank 0 with the next dispatch."""
+        local = [s % self.S_local for s in slots]
+        try:
+            mb = self._chunk_batch([_Request(i, q) for i, q in keys])
+        except Exception as e:
+            log.warning(f"featurization of {len(keys)} requests failed: {e!r}")
+            self._stage_errors.update({s: e for s in slots})
+            self._staged.append(self._dummy + ([],))
+            return
+        with self._watchdog.guard("prefill dispatch"):
+            cache, _, enc_mask, src = self._prefill(mb)
+        self._staged.append((cache, enc_mask, src, local))
+        with self._stats_lock:
+            self._prefills += 1
+
+    def _fail_slot(self, s: int, exc: Exception) -> None:
+        """A slot whose chunk did not featurize: its request fails; the slot
+        is free again once its (dummy) chunk has left the staging order."""
+        req = self._slot_req[s]
+        self._slot_req[s] = None
+        if req is not None:
+            self._record(req, "error", error=repr(exc))
+            fail_future(req.future, exc)
             with self._stats_lock:
-                self._prefills += 1
-            t_ins = time.monotonic()
-            for s, r in zip(slots, reqs):
-                r.t_slotted = t_ins
-                self._slot_req[s] = r
-                self._slot_toks[s] = []
-                self._slot_lps[s] = []
+                self._failed += 1
+        if self._live[s]:
+            self._live[s] = False
+            self._free.append(s)
 
     def _finish_slot(self, s: int):
         self._live[s] = False
@@ -818,16 +902,25 @@ class ContinuousEngine:
         try:
             self._run_inner()
         except Exception as e:
-            # a raising dispatch (lost device, OOM): fail everything in
-            # flight and flip unhealthy instead of hanging every client
+            # a raising dispatch (lost device, OOM, a dead follower): fail
+            # everything in flight and flip unhealthy instead of hanging
+            # every client
             self._fail_inflight(e)
+        if self._link is not None and self._unhealthy is None:
+            try:
+                self._link.send({"op": "stop"})
+            except Exception as e:
+                self._fail_inflight(e)
 
     def _run_inner(self):
         running = True
+        heartbeat = self._link.timeout_s / 4 if self._link is not None else None
+        last_sent = time.monotonic()
         while True:
             if self._unhealthy is not None:
                 return  # _fail_inflight already resolved everything
-            busy = any(self._slot_req) or self._waiting or self._staged
+            staged = any(self._staged_slots)
+            busy = any(self._slot_req) or self._waiting or staged
             if not running and not busy:
                 if self._reload_req is not None:  # fail a reload caught by stop
                     _, ev, err = self._reload_req
@@ -845,32 +938,108 @@ class ContinuousEngine:
                 req = self._slot_req[s]
                 if self._live[s] and req is not None and req.deadline and req.deadline < now:
                     self._expire_slot(s)
-            if self._reload_req is None:
-                self._admit()
-            elif not any(self._slot_req) and not self._staged:
+            plan = {"op": "plan", "reload": None, "chunks": [], "dispatch": False, "kill": {}}
+            if self._reload_req is not None and not any(self._slot_req) and not staged:
                 # drain barrier reached: no slot decodes under mixed weights
-                self._finish_reload()
-                self._admit()
+                plan["reload"] = self._reload_req[0]
+            if self._reload_req is None or plan["reload"] is not None:
+                chunks = self._plan_admissions()
+                plan["chunks"] = [(d, [(r.image_id, r.question) for r in reqs], slots)
+                                  for d, reqs, slots in chunks]
             # else: admission paused; live slots keep draining below
             live = [s for s in range(self.S) if self._live[s] and self._slot_req[s] is not None]
-            if not live and not self._staged and not self._kill_pending:
+            if live or any(self._staged_slots) or self._kill_pending:
+                plan["dispatch"] = True
+                for q in self._staged_slots:  # each data rank scatters its first staged chunk
+                    for s in q.pop(0) if q else ():
+                        if self._slot_req[s] is None:  # its chunk failed: free it now
+                            self._free.append(s)
+                        else:
+                            self._live[s] = True
+                for s in self._kill_pending:
+                    plan["kill"].setdefault(s // self.S_local, []).append(s % self.S_local)
+                self._kill_pending.clear()
+            elif plan["reload"] is None and not plan["chunks"]:
+                if heartbeat is not None and time.monotonic() - last_sent > heartbeat:
+                    with self._watchdog.guard("mesh heartbeat"):
+                        self._link.send({"op": "noop"})
+                    last_sent = time.monotonic()
                 continue
             if self._state is None:  # warmup=False on the CPU: built at first use
                 self._warmup()
-            staged = self._staged.pop(0) if self._staged else None
-            if staged is not None:
-                for s in staged[3]:
-                    self._live[s] = True
-            with self._watchdog.guard("decode dispatch"):
-                toks_np, lps_np, neff_np = self._dispatch(staged)
+            if self._link is not None:
+                with self._watchdog.guard("mesh send"):
+                    self._link.send(plan)
+                last_sent = time.monotonic()
+            out = self._execute(plan)
+            if plan["reload"] is not None:
+                _, ev, err = self._reload_req
+                if out["reload_error"] is not None:
+                    err.append(out["reload_error"])
+                self._reload_req = None
+                ev.set()
+            if not plan["dispatch"]:
+                continue
             if self._unhealthy is not None:
                 return  # the stall fired while blocked; futures already failed
+            for s, e in out["errors"].items():
+                self._fail_slot(s, e if isinstance(e, BaseException) else RuntimeError(e))
             live = [s for s in range(self.S) if self._live[s] and self._slot_req[s] is not None]
             with self._stats_lock:
                 self._dispatches += 1
                 self._slot_steps += len(live) * self.horizon
                 self._total_steps += self.S * self.horizon
-            self._collect_tokens(live, toks_np, lps_np, neff_np)
+            self._collect_tokens(live, *out["tokens"])
+
+    def _execute(self, plan: dict) -> dict:
+        """Every rank: one plan's device work, in one order: the reload, the
+        chunks this data rank prefills, the dispatch. Returns
+        ``{"reload_error"}`` and, after a dispatch, ``"tokens"`` (the
+        horizon's tokens, log-probs and accepted counts of every slot, on
+        rank 0 gathered over the data axis) and ``"errors"`` (global slot
+        -> why its chunk did not featurize)."""
+        out = {"reload_error": None}
+        if plan["reload"] is not None:
+            out["reload_error"] = self._reload_weights(plan["reload"])
+        for d, keys, slots in plan["chunks"]:
+            if d == self._dp_rank:
+                self._stage(keys, slots)
+        if not plan["dispatch"]:
+            return out
+        staged = self._staged.pop(0) if self._staged else None
+        t0 = time.perf_counter()
+        with self._watchdog.guard("decode dispatch"):
+            tokens = self._dispatch(staged, plan["kill"].get(self._dp_rank, []))
+        self._dispatch_s += time.perf_counter() - t0
+        errors, self._stage_errors = self._stage_errors, {}
+        if self._mesh is not None and self._dp > 1:
+            parts = self._link.gather(self._mesh, (tokens, {s: repr(e)
+                                                            for s, e in errors.items()}))
+            tokens = tuple(None if parts[0][0][k] is None
+                           else np.concatenate([p[0][k] for p in parts], axis=1)
+                           for k in range(3))
+            errors = {s: e for p in parts for s, e in p[1].items()}
+        out.update(tokens=tokens, errors=errors)
+        return out
+
+    def follow(self) -> None:
+        """The loop of a rank other than 0 in a serving mesh: it applies rank
+        0's plans in order (:meth:`_execute`) until rank 0's stop. A failed
+        collective raises: the mesh is broken."""
+        if self._leader:
+            raise RuntimeError("follow() runs on the ranks of a mesh other than 0")
+        self._stream.enter()
+        while True:
+            plan = self._link.recv()
+            if plan["op"] == "stop":
+                break
+            if plan["op"] == "plan":
+                self._execute(plan)
+                if plan["dispatch"]:
+                    with self._stats_lock:
+                        self._dispatches += 1
+        self._stream.synchronize()
+        self._watchdog.close()
 
     def _collect_tokens(self, live, toks_np, lps_np, neff_np) -> None:
         """The horizon's tokens into the live slots' rows; a slot finishes at

@@ -29,6 +29,34 @@ port's dicts keyed by image id (``data/adapters.py``), not frames.
   is restored from a kept copy of the adapted leaves, never by subtraction.
 * **ViT encoding cache** (``VIT_CACHE``, ``serving/encoding_cache.py``):
   an image seen before skips the ViT.
+* **The decode** (``stats()["decode"]`` names it, with the reason): a
+  greedy config replays its bucket's CUDA graphs ("graphs"); ``SAMPLE`` and
+  beam search (``isgreedy: false``) run the executor's eager generate
+  ("eager"), on the card as on the CPU, the encode still through the
+  kernels.
+
+Over a mesh (an executor built in a ``torch.distributed`` group with a
+``MESH``; ``torchrun --nproc-per-node N -m phoneme_vqa_torch.serve ...``): the
+engine is built on every rank. Rank 0 alone holds the queue, the deadlines,
+the cache and the front end; for each batch its dispatcher broadcasts one
+small message (the batch's (image_id, question) keys, its adapter and its
+bucket) over a gloo group of the engine's own (:class:`ControlLink`, on the
+CPU whatever the data backend), and so do reloads and the stop. The other
+ranks run :meth:`ServingEngine.follow`, which has no queue: each message is
+applied at the same batch boundary on every rank. A bucket is a multiple of
+the data axis; each data rank featurizes and decodes its block of the
+bucket's rows (``parallel/mesh.py: serve_rows``), the model ranks of a data
+rank together, and the answers come back to rank 0 over a second gloo
+group of the link's (one group a thread of rank 0's, so each group's
+operations keep one order on every rank). The decode and its collectives
+run on rank 0's resolver thread alone, so every rank issues them in one
+order. Over a mesh the decode runs eagerly (:data:`MESH_EAGER`): gloo's
+collectives go through the host and cannot be captured in a CUDA graph,
+and a decode captured with NCCL's collectives inside is not proven on the
+cards (ROADMAP C3), so no mesh captures one; ``stats()`` and the log say
+so. Rank 0 broadcasts a no-op after ``group_timeout_s / 4`` seconds idle,
+so a follower that died fails its next collective within
+``group_timeout_s``: the engine turns unhealthy.
 """
 
 from __future__ import annotations
@@ -39,11 +67,14 @@ import queue
 import threading
 import time
 from concurrent.futures import Future
+from datetime import timedelta
 from typing import List, Optional
 
 import torch
+import torch.distributed as dist
 
 from ..data.loader import batch_iterator
+from ..parallel.mesh import serve_rows
 from ..utils.logger import get_logger
 from .encoding_cache import EncodingCache
 from .graphs import GraphDecoder, check_params_in_place, param_addresses
@@ -135,17 +166,102 @@ def decodes_with_graphs(executor) -> bool:
     """Whether the engine decodes ``executor``'s model through
     ``serving/graphs.py``: a real executor whose configured decode is greedy
     (``SPEC_DECODE`` and ``EVAL_CONTINUOUS`` give greedy's rows). Sampling
-    and beam search have no graphs: served on the CPU they run the
-    executor's eager generate, and on the card they raise."""
-    if not hasattr(executor, "model") or not hasattr(executor, "_decodes_greedy"):
-        return False
-    if executor._decodes_greedy():
-        return True
-    if engine_device(executor).type == "cuda":
-        raise NotImplementedError(
-            "the serving graphs capture the greedy decode; SAMPLE and beam search "
-            "(isgreedy: false) configs are served on the CPU only")
-    return False
+    and beam search have no graphs: the engine serves them through the
+    executor's eager generate, on the CPU and on the card alike."""
+    return (hasattr(executor, "model") and hasattr(executor, "_decodes_greedy")
+            and bool(executor._decodes_greedy()))
+
+
+#: the decode of an engine over a mesh, as its stats() and log name it
+MESH_EAGER = ("eager: over a mesh the decode is not captured (gloo's collectives go through the "
+              "host; a capture with NCCL's collectives inside is not proven: ROADMAP C3)")
+
+
+def decode_mode(executor, mesh=None) -> tuple:
+    """(whether the engine decodes through the graph decoder, the decode's
+    name and why): what ``stats()["decode"]`` reports."""
+    if not decodes_with_graphs(executor):
+        if not hasattr(executor, "model"):
+            return False, "eager: the executor decodes in its own infer"
+        return False, ("eager: SAMPLE and beam search have no captured graphs; the executor's "
+                       "generate runs eagerly, its encode through the kernels")
+    if mesh is not None:
+        return False, MESH_EAGER
+    if engine_device(executor).type != "cuda":
+        return True, "graphs: the graph decoder's chunks, run eagerly off the card"
+    return True, "graphs: each bucket's decode replayed from its CUDA graphs"
+
+
+def serving_mesh(executor):
+    """The executor's mesh when it spans more than one process, else None."""
+    mesh = getattr(executor, "mesh", None)
+    if mesh is None or not dist.is_initialized() or dist.get_world_size() == 1:
+        return None
+    return mesh
+
+
+class ControlLink:
+    """Rank 0's channel to the other ranks of a serving mesh: small pickled
+    messages broadcast over a gloo group of its own (on the CPU, whatever
+    the data backend: an idle follower waits in it, and a CPU wait has no
+    device watchdog), sent one at a time in the order rank 0 sends them.
+    Every rank builds it with :func:`control_link`, at the same point."""
+
+    def __init__(self, timeout_s: float):
+        self.timeout_s = float(timeout_s)
+        timeout = timedelta(seconds=self.timeout_s)
+        self.group = dist.new_group(backend="gloo", timeout=timeout)
+        # the answers' gathers: rank 0's resolver issues them while its
+        # dispatcher broadcasts on ``group``, so they need a group of their own
+        self.data_group = dist.new_group(backend="gloo", timeout=timeout)
+        self._lock = threading.Lock()
+
+    def send(self, message: dict) -> None:
+        with self._lock:
+            dist.broadcast_object_list([message], src=0, group=self.group)
+
+    def recv(self) -> dict:
+        box = [None]
+        dist.broadcast_object_list(box, src=0, group=self.group)
+        return box[0]
+
+    def barrier(self) -> None:
+        dist.barrier(group=self.group)
+
+    def gather(self, mesh, payload) -> list:
+        """Every data rank's ``payload`` (its first model rank's), in data
+        rank order, on every rank: an all-gather over the world on the
+        link's data group."""
+        parts = [None] * dist.get_world_size()
+        dist.all_gather_object(parts, (mesh.dp_rank, mesh.tp_rank, payload),
+                               group=self.data_group)
+        return [p for _, _, p in sorted(x for x in parts if x[1] == 0)]
+
+
+_LINK: Optional[ControlLink] = None
+
+#: the timeout of a serving mesh's collectives, seconds (the serve CLI's
+#: ``--group-timeout``): a follower that died fails rank 0's next
+#: collective within it
+GROUP_TIMEOUT_S = 120.0
+
+
+def control_link(timeout_s: float = GROUP_TIMEOUT_S) -> ControlLink:
+    """This process's :class:`ControlLink`, built at the first call (a
+    collective: every rank makes its first call at the same point). A later
+    call that asks for another timeout raises: the link keeps its first."""
+    global _LINK
+    if _LINK is None:
+        _LINK = ControlLink(timeout_s)
+    elif float(timeout_s) != _LINK.timeout_s:
+        raise ValueError(f"the serving mesh's control link has a {_LINK.timeout_s} s group "
+                         f"timeout; an engine asked for {float(timeout_s)} s")
+    return _LINK
+
+
+class _BatchError(RuntimeError):
+    """A served batch failed on some rank before any collective (its rows
+    did not featurize): its requests fail, the mesh stays in step."""
 
 
 class DeviceStream:
@@ -229,6 +345,9 @@ class ServingEngine:
     stall_timeout_s: a device call blocking longer than this fails every
         in-flight future, marks the engine unhealthy and keeps ``stop()``
         returning (``serving/watchdog.py``). 0 disables.
+    group_timeout_s: over a mesh, the timeout of the engine's control
+        group; rank 0 sends a no-op after a quarter of it idle (module
+        docstring). Build every rank's engine with the same arguments.
     """
 
     def __init__(
@@ -248,11 +367,15 @@ class ServingEngine:
         buckets: Optional[list] = None,
         access_log=None,
         stall_timeout_s: float = 300.0,
+        group_timeout_s: float = GROUP_TIMEOUT_S,
     ):
         self.executor = executor
         self.ocr_store = ocr_store
         self.obj_store = obj_store
         self.batch_size = int(batch_size)
+        self._mesh = serving_mesh(executor)
+        self._link = control_link(group_timeout_s) if self._mesh is not None else None
+        self._leader = self._mesh is None or dist.get_rank() == 0
         self.buckets = self._resolve_buckets(buckets)
         self.max_wait_s = float(max_wait_ms) / 1e3
         self.max_answer_length = int(max_answer_length)
@@ -302,6 +425,7 @@ class ServingEngine:
         self._reloads = 0
         self._expired = 0
         self._latencies_ms: list = []
+        self._decode_s = 0.0  # seconds this rank spent decoding batches
         self._cache_size = int(cache_size)
         self._cache: dict = {}  # (image_id, question, adapter) -> answer
         self._bucket_batches: dict = {}  # decode batch shape -> count
@@ -319,6 +443,9 @@ class ServingEngine:
             executor._ensure_params()
             named = dict(executor.model.named_parameters())
             for name, spec in self._adapters.items():
+                if hasattr(executor, "_shard_lora"):  # a model rank's parts
+                    spec = self._adapters[name] = dict(spec,
+                                                       lora=executor._shard_lora(spec["lora"]))
                 bad = self._lora.unmatched_adapter_paths(named, spec["lora"])
                 if bad:
                     raise ValueError(f"adapter {name!r} does not match the served base model: "
@@ -329,7 +456,10 @@ class ServingEngine:
         # the vit_encodings input
         self._enc_cache = EncodingCache.maybe_build(executor, self._adapters)
         self._stream = DeviceStream(engine_device(executor))
-        self._graphs = decodes_with_graphs(executor)
+        self._graphs, self.decode_reason = decode_mode(executor, self._mesh)
+        if self._mesh is not None:
+            log.info(f"## serving over a mesh ({self._mesh.describe()}), buckets {self.buckets}; "
+                     f"decode {self.decode_reason}")
         self._decoders: dict = {}  # bucket -> GraphDecoder
         self._graph_pool = None
         self._param_addresses = None
@@ -343,10 +473,12 @@ class ServingEngine:
         if warmup:
             ds = self._featurize([self._dummy_request()])
             with self._stream.scope():
-                for bucket in self.buckets:
+                for bucket in self.buckets:  # one order on every rank of a mesh
                     self._infer_async(ds, bucket)()
             self._stream.synchronize()
         self._inflight: "queue.Queue" = queue.Queue(maxsize=2)
+        if not self._leader:  # a follower: no threads, follow() runs its loop
+            return
         self._worker = threading.Thread(target=self._run, daemon=True,
                                         name="serving-dispatcher")
         self._worker.start()
@@ -380,9 +512,15 @@ class ServingEngine:
             self._access_log = None
 
     def _resolve_buckets(self, buckets) -> list:
-        """Ascending decode batch shapes ending at ``batch_size``, clipped to
-        it and deduped. None keeps the single-shape engine. (The port serves
-        on one device: a mesh is ROADMAP A15.)"""
+        """Ascending decode batch shapes ending at ``batch_size``. None keeps
+        the single-shape engine. Each bucket is rounded up to a multiple of
+        the mesh's data axis, so every data rank decodes an equal block,
+        then clipped to ``batch_size`` and deduped; ``batch_size`` must
+        divide the axis."""
+        dp = self._data_axis()
+        if self.batch_size % dp:
+            raise ValueError(f"batch_size {self.batch_size} must divide the mesh's data axis "
+                             f"({dp})")
         if not buckets:
             return [self.batch_size]
         out = set()
@@ -390,9 +528,14 @@ class ServingEngine:
             b = int(b)
             if b <= 0:
                 raise ValueError(f"bucket sizes must be positive, got {b}")
-            out.add(min(self.batch_size, b))
+            out.add(min(self.batch_size, -(-b // dp) * dp))
         out.add(self.batch_size)
         return sorted(out)
+
+    def _data_axis(self) -> int:
+        """The data axis of the executor's mesh (1 without one)."""
+        mesh = getattr(self.executor, "mesh", None)
+        return 1 if mesh is None else int(mesh.dp)
 
     # -- client surface -------------------------------------------------------
 
@@ -459,7 +602,11 @@ class ServingEngine:
                 "served": self._served,
                 "failed": self._failed,
                 "unhealthy": self._unhealthy,
+                "decode": self.decode_reason.split(":")[0],
+                "decode_reason": self.decode_reason,
+                **({"mesh": self._mesh.describe()} if self._mesh is not None else {}),
                 "batches": self._batches,
+                "decode_s": self._decode_s,
                 "cache_hits": self._cache_hits,
                 "reloads": self._reloads,
                 "expired": self._expired,
@@ -497,15 +644,9 @@ class ServingEngine:
                         if self._unhealthy is not None:
                             raise RuntimeError(f"engine unhealthy: {self._unhealthy}")
                         self._weights_cv.wait(timeout=0.5)
-                    self.executor._load_trained_checkpoint(loadtype)
-                    self._stream.synchronize()
-                    if self._param_addresses is not None:
-                        check_params_in_place(self.executor.model, self._param_addresses)
-                    if self._adapters:  # the new weights are the base; adapters
-                        self._capture_base()  # re-merge at their next batch
-                        self._active_adapter = None
-                    if self._enc_cache is not None:  # the ViT may have changed
-                        self._enc_cache.flush()
+                    if self._link is not None:  # every rank reloads at this boundary
+                        self._link.send({"op": "reload", "loadtype": loadtype})
+                    self._load_weights(loadtype)
                 finally:
                     self._reload_waiting = False
                     self._weights_cv.notify_all()
@@ -515,6 +656,19 @@ class ServingEngine:
         ms = (time.monotonic() - t0) * 1e3
         log.info(f"## hot-reloaded {loadtype}_ckp in {ms:.0f} ms")
         return {"reloaded": loadtype, "ms": round(ms, 1)}
+
+    def _load_weights(self, loadtype: str) -> None:
+        """The checkpoint's weights into the parameters in place, with what
+        they determine: the adapters' base and the encoding cache."""
+        self.executor._load_trained_checkpoint(loadtype)
+        self._stream.synchronize()
+        if self._param_addresses is not None:
+            check_params_in_place(self.executor.model, self._param_addresses)
+        if self._adapters:  # the new weights are the base; adapters
+            self._capture_base()  # re-merge at their next batch
+            self._active_adapter = None
+        if self._enc_cache is not None:  # the ViT may have changed
+            self._enc_cache.flush()
 
     @property
     def unhealthy_reason(self) -> Optional[str]:
@@ -529,6 +683,8 @@ class ServingEngine:
         with self._lock:
             already = self._stopped
             self._stopped = True
+        if not self._leader:  # a follower stops at rank 0's stop message
+            return
         if already and not (self._worker.is_alive() or self._resolver.is_alive()):
             return
         while self._worker.is_alive() or self._resolver.is_alive():
@@ -637,7 +793,14 @@ class ServingEngine:
     # -- worker ---------------------------------------------------------------
 
     def _collect(self) -> List[_Request]:
-        item = self._queue.get()
+        while True:
+            try:
+                item = (self._queue.get(timeout=self._link.timeout_s / 4) if self._link is not None
+                        else self._queue.get())
+                break
+            except queue.Empty:  # idle over a mesh: a no-op finds a dead follower
+                with self._watchdog.guard("mesh heartbeat"):
+                    self._link.send({"op": "noop"})
         if item is None:
             return []
         batch = [item]
@@ -656,9 +819,12 @@ class ServingEngine:
             batch.append(nxt)
         return batch
 
-    def _featurize(self, reqs: List[_Request]):
+    def _featurize(self, reqs: List[_Request], encode: bool = True):
+        """The requests' dataset; with ``encode`` the cached ViT encodings
+        applied (over a mesh the resolver applies them: a cache miss runs
+        the ViT, whose collectives belong on the resolver's thread)."""
         ds = featurize_requests(self.executor, self.ocr_store, self.obj_store, reqs)
-        if self._enc_cache is not None:
+        if encode and self._enc_cache is not None:
             with self._stream.scope():
                 self._enc_cache.apply(ds, [r.image_id for r in reqs])
         return ds
@@ -679,23 +845,107 @@ class ServingEngine:
     def _infer_async(self, dataset, bucket: int):
         """``executor.infer_async`` at ``bucket`` (through the bucket's graph
         decoder where the engine has graphs); a stub executor that has only
-        ``infer`` answers at dispatch."""
+        ``infer`` answers at dispatch. Over a mesh, the decode of this rank's
+        rows at its share of the bucket, run in the returned ``resolve``
+        with its collectives (:meth:`_mesh_batch` gathers the answers)."""
         infer_async = getattr(self.executor, "infer_async", None)
         if infer_async is None:
             answers = self.executor.infer(dataset, bucket, self.max_answer_length,
                                           return_scores=self.confidence)
             return lambda: answers
+        if self._mesh is not None:
+            rows = bucket // self._mesh.dp
+
+            def run():  # eager over a mesh (MESH_EAGER)
+                return infer_async(dataset, rows, self.max_answer_length,
+                                   return_scores=self.confidence, local=True)()
+
+            return run
         kw = {"decoder": self._decoder(dataset, bucket)} if self._graphs else {}
         return infer_async(dataset, bucket, self.max_answer_length,
                            return_scores=self.confidence, **kw)
+
+    def _mesh_batch(self, keys: list, bucket: int):
+        """This rank's part of a served batch over the mesh: its block of
+        ``keys`` (``serve_rows``) featurized, a placeholder row where it has
+        none (or where featurizing failed: the error travels with the
+        answers, so every rank still steps the decode), and ``resolve()``,
+        which decodes them and gathers the data ranks' answers in order
+        (with the confidence scores), raising :class:`_BatchError` after the
+        gather if some rank's rows did not featurize."""
+        mine = [_Request(i, q) for i, q in keys[serve_rows(self._mesh, len(keys), bucket)]]
+        err = None
+        try:
+            ds = self._featurize(mine or [self._dummy_request()], encode=False)
+            if len(ds) != max(len(mine), 1):
+                raise RuntimeError(f"featurization dropped rows: {len(ds)} != {len(mine)}")
+        except Exception as e:
+            err, mine = repr(e), []
+            ds = self._featurize([self._dummy_request()], encode=False)
+        decode = self._infer_async(ds, bucket)
+
+        def resolve():
+            if self._enc_cache is not None:
+                self._enc_cache.apply(ds, [r.image_id for r in mine or [self._dummy_request()]])
+            out = decode()
+            answers, scores = out if self.confidence else (out, [])
+            parts = self._link.gather(self._mesh, (answers[:len(mine)], scores[:len(mine)], err))
+            errors = [e for _, _, e in parts if e]
+            if errors:
+                raise _BatchError(f"a rank's rows did not featurize: {errors[0]}")
+            answers = [a for part in parts for a in part[0]]
+            return (answers, [x for part in parts for x in part[1]]) if self.confidence \
+                else answers
+
+        return resolve
+
+    def follow(self) -> None:
+        """The loop of a rank other than 0 in a serving mesh: no queue, no
+        threads; it takes rank 0's messages in order and steps the same
+        decode on its rows of each batch, switching adapters and weights at
+        the batch boundaries rank 0 switches at, until rank 0's stop. A
+        failed collective raises: the mesh is broken."""
+        if self._leader:
+            raise RuntimeError("follow() runs on the ranks of a mesh other than 0")
+        self._stream.enter()
+        while True:
+            message = self._link.recv()
+            op = message["op"]
+            if op == "stop":
+                break
+            if op == "reload":
+                self._load_weights(message["loadtype"])
+                with self._stats_lock:
+                    self._reloads += 1
+            elif op == "batch":
+                self._activate(message["adapter"])
+                resolve = self._mesh_batch(message["keys"], message["bucket"])
+                t0 = time.perf_counter()
+                try:
+                    with self._watchdog.guard("decode"):
+                        resolve()
+                except _BatchError:
+                    pass  # rank 0 fails the batch's requests
+                self._decode_s += time.perf_counter() - t0
+                with self._stats_lock:
+                    self._batches += 1
+                    self._bucket_batches[message["bucket"]] = \
+                        self._bucket_batches.get(message["bucket"], 0) + 1
+        self._stream.synchronize()
+        self._watchdog.close()
 
     def _run(self):
         self._stream.enter()
         try:
             self._run_inner()
-        except Exception as e:  # fatal dispatcher error (lost device, ...)
+        except Exception as e:  # fatal dispatcher error (lost device, dead follower, ...)
             self._fail_inflight(e)
             self._inflight.put(None)  # release the resolver
+        if self._link is not None and self._unhealthy is None:
+            try:  # after every batch's message: the followers finish those first
+                self._link.send({"op": "stop"})
+            except Exception as e:
+                self._fail_inflight(e)
 
     def _run_inner(self):
         """Dispatcher: gather -> featurize -> dispatch -> hand off. The
@@ -764,7 +1014,7 @@ class ServingEngine:
                 if work or self._active_adapter == reqs[0].adapter or not self._adapters:
                     self._batches_in_flight += 1
                     break
-        if not work:
+        if not work and self._link is None:
             try:
                 gen = self._enc_cache.generation if self._enc_cache is not None else None
                 ds = self._featurize(reqs)
@@ -783,6 +1033,13 @@ class ServingEngine:
                 work.append((reqs, bucket, resolve, None))
             except Exception as e:  # the resolver reports it per request
                 work.append((reqs, None, None, e))
+        elif not work:  # over a mesh: every rank steps the batch, failed or not
+            bucket = next(b for b in self.buckets if b >= len(reqs))
+            keys = [(r.image_id, r.question) for r in reqs]
+            with self._watchdog.guard("mesh send"):
+                self._link.send({"op": "batch", "keys": keys, "adapter": reqs[0].adapter,
+                                 "bucket": bucket})
+            work = [(reqs, bucket, self._mesh_batch(keys, bucket), None)]
         # bounded handoff (depth 2): blocks when the resolver is behind
         self._inflight.put((reqs, work))
 
@@ -819,12 +1076,19 @@ class ServingEngine:
             answers = None
             if exc is None:
                 try:
+                    t0 = time.perf_counter()
                     with self._watchdog.guard("decode materialize"):
                         answers = resolve()
+                    self._decode_s += time.perf_counter() - t0
                     if self.confidence:
                         answers = [{"answer": a, "confidence": round(math.exp(s), 4)}
                                    for a, s in zip(*answers)]
+                except _BatchError as e:
+                    exc = e
                 except Exception as e:
+                    if self._mesh is not None:  # a collective failed: the mesh is broken
+                        self._fail_inflight(e)
+                        return False
                     exc = e
             if self._unhealthy is not None:
                 return False  # the stall fired mid-wait; futures already failed

@@ -23,7 +23,8 @@ batch replays them:
   operations run eagerly (the caller asked for the CPU).
 
 Graphs cannot be serialized, so every process captures its own at warmup
-(``serving/aot.py`` keeps the built kernels only). The graphs read the
+(``serving/aot.py`` keeps the built kernels only). Over a mesh the engines
+decode eagerly and capture nothing (``serving/engine.py: MESH_EAGER``). The graphs read the
 parameters at their addresses: a reload must copy into the parameters'
 storage (``BaseExecutor.load_params`` does), never rebind them;
 :func:`param_addresses` lets an engine check that.

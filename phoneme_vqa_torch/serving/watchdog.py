@@ -8,6 +8,15 @@ interrupt. Without detection, every in-flight future never resolves and
 in-flight work loudly, marks the engine unhealthy (``/healthz`` turns 503),
 keeps ``stop()`` returning, and leaves the stuck daemon thread behind rather
 than waiting on it.
+
+Over a serving mesh a rank that died or hangs is the same fault seen from
+rank 0: its next collective (a batch's broadcast, the decode's model-axis
+collectives, the answers' gather, or the no-op rank 0 sends when idle)
+raises once the process group's timeout passes (``--group-timeout``; a
+dead peer's closed socket usually raises at once), and the engines treat a
+collective that raises as fatal: the in-flight futures fail and the engine
+turns unhealthy. A collective blocked past the stall timeout first fires
+this watchdog, whichever comes first.
 """
 
 from __future__ import annotations

@@ -40,7 +40,11 @@ token mean and the gradients are summed over the data axis
 the data axis and gather the answers; checkpoints hold full tensors, which
 rank 0 writes and every rank splits on restore, so a checkpoint moves
 between a mesh and one process; rank 0 writes ``results.json`` and
-``metrics.jsonl``. Serving over a mesh is not ported (ROADMAP A15b).
+``metrics.jsonl``. Serve mode builds the same mesh: the model is split by
+the same plan once its weights are drawn or restored, and the serving
+engines split each served batch over the data axis (``serving/engine.py``,
+``serving/continuous.py``). LoRA adapters of split weights are split with
+them (``train/lora.py: shard_adapter``).
 
 Host knobs: ``FEATURE_CACHE`` (``data/feature_cache.py``), ``NUMWORKERS``
 (``data/loader.py: prefetch`` in train, eval and predict), ``PROFILE_DIR``
@@ -188,19 +192,16 @@ class BaseExecutor:
 
     def _create_mesh(self):
         """The (data, model) mesh over the process group (``parallel/mesh.py``),
-        or None in a single process without one. A ``MESH`` of more than one
-        device without a group raises: launch with ``torchrun``
-        (``parallel/multihost.py``). Serving over a mesh is not ported."""
+        or None in a single process without one, in every mode. A ``MESH`` of
+        more than one device without a group raises: launch with ``torchrun``
+        (``parallel/multihost.py``)."""
         mesh_cfg = self.config.get("MESH")
         distributed = dist.is_available() and dist.is_initialized()
-        if self.mode == "serve":
-            if _mesh_devices(mesh_cfg) > 1 or (distributed and dist.get_world_size() > 1):
-                raise NotImplementedError("serving over a MESH is not ported yet (ROADMAP A15b)")
-            return None
         if not distributed:
             if _mesh_devices(mesh_cfg) > 1:
+                entry = "serve" if self.mode == "serve" else "run"
                 raise ValueError(f"MESH={dict(mesh_cfg)!r} needs one process per device: launch "
-                                 "with torchrun --nproc-per-node N -m phoneme_vqa_torch.run "
+                                 f"with torchrun --nproc-per-node N -m phoneme_vqa_torch.{entry} "
                                  "(MULTIHOST, parallel/multihost.py)")
             return None
         # the mesh's own device type only places DTensors, which the port
@@ -426,11 +427,22 @@ class BaseExecutor:
             dist.barrier()
 
     def _gather_tree(self, tree: dict) -> dict:
-        tree = dict(tree, params=self.tx.gather_params(tree["params"]),
+        tree = dict(tree, params=self._gather_params(tree["params"]),
                     opt_state=self.tx.gather_state(tree["opt_state"]))
         if "ema_params" in tree:
-            tree["ema_params"] = self.tx.gather_params(tree["ema_params"])
+            tree["ema_params"] = self._gather_params(tree["ema_params"])
         return tree
+
+    def _gather_params(self, params: dict) -> dict:
+        """A params tree (flat, or a LoRA ``{"base", "lora"}``) as full
+        tensors."""
+        if not lora_mod.is_composite(params):
+            return self.tx.gather_params(params)
+        flat = self.tx.gather_params({f"{n}.{k}": t for n, ad in params["lora"].items()
+                                      for k, t in ad.items()})
+        return {"base": self.tx.gather_params(params["base"]),
+                "lora": {n: {k: flat[f"{n}.{k}"] for k in ad}
+                         for n, ad in params["lora"].items()}}
 
     def _localize(self, restored: dict) -> dict:
         """A checkpoint's full tensors as this rank's parts (over a mesh);
@@ -439,16 +451,21 @@ class BaseExecutor:
         if self.mesh is None or not isinstance(restored.get("params"), dict):
             return restored
         out = dict(restored)
-        if not lora_mod.is_composite(out["params"]):
-            out["params"] = self._shard_params(out["params"])
+        out["params"] = self._localize_params(out["params"])
         if isinstance(out.get("ema_params"), dict):
-            out["ema_params"] = self._shard_params(out["ema_params"])
+            out["ema_params"] = self._localize_params(out["ema_params"])
         if isinstance(out.get("opt_state"), dict) and hasattr(self, "tx"):
             try:
                 out["opt_state"] = self.tx.shard_state(out["opt_state"])
             except (KeyError, IndexError, RuntimeError, TypeError):
                 out["opt_state"] = None
         return out
+
+    def _localize_params(self, params: dict) -> dict:
+        if lora_mod.is_composite(params):
+            return {"base": self._shard_params(params["base"]),
+                    "lora": self._shard_lora(params["lora"])}
+        return self._shard_params(params)
 
     def _log_metrics(self, record: dict) -> None:
         """One JSON line per epoch appended to SAVE_PATH/metrics.jsonl (by
@@ -612,6 +629,7 @@ class BaseExecutor:
             log.info("# no checkpoint restored: materializing random-init params")
             self._materialize()
             self.state.params = bind_params(self.model, self._random_params())
+            self._maybe_parallelize()  # drawn at full shapes, as one process draws them
         return self.state.params
 
     def _random_params(self) -> Dict[str, torch.Tensor]:
@@ -627,6 +645,7 @@ class BaseExecutor:
         (the serving engines' captured CUDA graphs) reads the new ones."""
         if self._abstract_params:
             self._materialize()
+            self._maybe_parallelize()  # the module split; the values come below
         if self.state.lora is not None:
             params = {"base": params, "lora": self.state.lora if lora is None else lora}
         self._set_trained_params(params)
@@ -646,13 +665,13 @@ class BaseExecutor:
         if self.state.lora is None:
             self.state.params = bind_params(self.model, self._shard_params(params))
             return
-        masters = bind_params(self.model, params["base"])
+        masters = bind_params(self.model, self._shard_params(params["base"]))
         self.state.params = {n: t.detach().clone() if n in params["lora"] and
                              t is self.model.get_parameter(n) else t
                              for n, t in masters.items()}
         self.state.lora = {n: {k: v.detach().to(self.device, torch.float32).clone()
                                .requires_grad_(True) for k, v in ad.items()}
-                           for n, ad in params["lora"].items()}
+                           for n, ad in self._shard_lora(params["lora"]).items()}
         self._refresh_lora_weights()
 
     # -- the mesh: the tensor-parallel split ------------------------------------
@@ -673,7 +692,8 @@ class BaseExecutor:
         full = self.state.params
         tp_mod.parallelize_(self.model, self._tp_plan, self.mesh.tp_rank, self.mesh.tp,
                             self.mesh.tp_group)
-        self.state.params = bind_params(self.model, self._shard_params(full))
+        if full:  # a serve-mode model split before its checkpoint is restored has none yet
+            self.state.params = bind_params(self.model, self._shard_params(full))
 
     def _shard_params(self, params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """A full params tree as this rank's parts (a part already split as
@@ -688,11 +708,35 @@ class BaseExecutor:
             out[n] = t
         return out
 
+    def _shard_lora(self, adapters):
+        """Full adapters as this rank's parts: the adapter of a split weight
+        takes its slice of ``b`` (a column split) or of ``a`` (a row split);
+        an adapter already split, or of a whole weight, is kept as it is."""
+        if not self._tp_plan:
+            return adapters
+        full, out = self._full_shapes(), {}
+        for n, ad in adapters.items():
+            dim = self._tp_plan.get(n)
+            if dim is not None and (ad["b"].shape[1], ad["a"].shape[0]) == full.get(n):
+                ad = lora_mod.shard_adapter(ad, dim, self.mesh.tp_rank, self.mesh.tp)
+            out[n] = ad
+        return out
+
     def _wrap_optimizer(self, tx):
-        """Over a mesh, the optimizer step of ``parallel/optimizer.py``."""
+        """Over a mesh, the optimizer step of ``parallel/optimizer.py``. Under
+        LoRA the split adapter factors are split parameters of their own
+        (``{weight}.b`` of a column split along its output dim, ``{weight}.a``
+        of a row split along its input dim)."""
         if self.mesh is None:
             return tx
-        return MeshOptimizer(tx, self.mesh, self._tp_plan, self._full_shapes())
+        split, shapes = dict(self._tp_plan), dict(self._full_shapes())
+        for n, ad in (self.state.lora or {}).items():
+            d_out, d_in = shapes[n]
+            rank = ad["a"].shape[1]
+            shapes[f"{n}.a"], shapes[f"{n}.b"] = (d_in, rank), (rank, d_out)
+            if self._tp_plan.get(n) is not None:
+                split[f"{n}.b" if self._tp_plan[n] == 0 else f"{n}.a"] = 1 - self._tp_plan[n]
+        return MeshOptimizer(tx, self.mesh, split, shapes)
 
     def _global_count(self, targets: torch.Tensor, pad_id: int):
         """The non-pad target count of the global batch over a mesh (the
@@ -741,13 +785,12 @@ class BaseExecutor:
         spec = lora_mod.from_config(self.config)
         if spec is None:
             return
-        if self.mesh is not None and self.mesh.tp > 1:
-            raise NotImplementedError("LORA_RANK with MESH model > 1 is not ported yet "
-                                      "(ROADMAP A15b): an adapter of a split weight needs its "
-                                      "gradient summed over the model axis")
         generator = torch.Generator(device=self.device).manual_seed(
             int(self.config.get("SEED", 13)) + 1)
-        adapters = lora_mod.init_lora(self.model, spec, generator, self.device)
+        # drawn at the full shapes, so a model rank holds its part of one
+        # process's adapters
+        adapters = lora_mod.init_lora(self.model, spec, generator, self.device,
+                                      shapes=self._full_shapes())
         self._lora_scale = spec.scale
         self.state.lora = {}  # LoRA on: _set_trained_params splits base and adapters
         self._set_trained_params({"base": self.state.params, "lora": adapters})
@@ -884,6 +927,14 @@ class BaseExecutor:
                      for n, t in self._opt_params().items()}
             for t in self._opt_params().values():
                 t.grad = None
+            # the whole factor of a split weight's adapter reaches the loss
+            # through this rank's slice only: its gradient is summed over
+            # the model axis
+            for n in self.state.lora:
+                dim = self._tp_plan.get(n)
+                if dim is not None:
+                    tp_mod.all_reduce(grads[f"{n}.{'a' if dim == 0 else 'b'}"],
+                                      self.mesh.tp_group)
             return grads
         grads = master_grads(self.model, self.state.params, self._trainable)
         self.model.zero_grad(set_to_none=True)
@@ -1047,23 +1098,26 @@ class BaseExecutor:
         return self.infer_async(dataset, batch_size, max_length, return_scores)()
 
     def infer_async(self, dataset, batch_size: int, max_length: int,
-                    return_scores: bool = False, decoder=None):
+                    return_scores: bool = False, decoder=None, local: bool = False):
         """Start :meth:`infer` and return a zero-argument ``resolve()`` that
         gives its result. With ``decoder`` (a ``serving.graphs.GraphDecoder``
         for this batch size) every batch moves to the device and its encode
         is launched here, and ``resolve`` replays the decoder's captured
         decode and reads the rows back; the serving engine calls this from
         its dispatcher thread and resolves on its resolver thread. Without
-        one, ``resolve`` runs the eager generate, a batch at a time."""
+        one, ``resolve`` runs the eager generate, a batch at a time.
+        ``local``: ``dataset`` holds this rank's rows alone (a serving engine
+        over a mesh hands each data rank its block): the batch decode of
+        them, neither split over the data axis nor gathered."""
         self._ensure_params()
         self.model.eval()
         batches = batch_iterator(dataset, batch_size, pad_final=True)
         if decoder is not None:
             pending = [(decoder.start(self._device_batch(b)), n_valid) for b, n_valid in batches]
-        elif self._use_pool_decode():
+        elif not local and self._use_pool_decode(batch_size):
             return lambda: self._answers(
                 *self._infer_pool(dataset, batch_size, max_length, return_scores), return_scores)
-        elif self.mesh is not None:
+        elif not local and self.mesh is not None:
             return lambda: self._infer_mesh(batches, max_length, return_scores)
         else:
             generate = self._get_generate_fn(max_length, return_scores)
@@ -1152,11 +1206,15 @@ class BaseExecutor:
 
     # -- slot-refill offline decode (EVAL_CONTINUOUS) --------------------------------
 
-    def _use_pool_decode(self) -> bool:
+    def _use_pool_decode(self, batch_size: int = 0) -> bool:
         """``EVAL_CONTINUOUS: true`` routes ``infer`` through the slot-refill
         pool decode (``decode/pool.py``): the same answers, fewer decode steps
         when answer lengths vary. Greedy only: a ``SAMPLE``, ``SPEC_DECODE``
-        or beam config logs why and keeps the batch decode."""
+        or beam config logs why and keeps the batch decode. Over a mesh, the
+        JAX executor's rule: a batch of ``batch_size`` rows that divides the
+        data axis keeps the batch decode split over it; one that does not
+        (which the batch decode would decode whole on every rank anyway)
+        takes the pool decode, every rank decoding every row."""
         c = self.config
         if not c.get("EVAL_CONTINUOUS"):
             return False
@@ -1165,8 +1223,9 @@ class BaseExecutor:
             reason = "SAMPLE/SPEC_DECODE configs use the batch decode"
         elif not (c.get("isgreedy", True) or int(c.get("num_beam", 1) or 1) <= 1):
             reason = "beam search uses the batch decode"
-        elif self.mesh is not None:
-            reason = "a mesh decodes through the data-parallel batch decode"
+        elif (self.mesh is not None and self.mesh.dp * self.mesh.tp > 1 and batch_size > 0
+              and batch_size % self.mesh.dp == 0):
+            reason = "data-parallel mesh evals via the split batch decode"
         if reason is not None:
             if not getattr(self, "_warned_pool", False):
                 log.warning(f"(!) EVAL_CONTINUOUS ignored: {reason}")

@@ -19,6 +19,12 @@ YAML knobs::
 ``attn`` adapts every attention projection (T5 q/k/v/o, custom-decoder
 q/k/v/out, ViT query/key/value/out); ``all`` adds the FFN products (wi*/wo,
 fc1/fc2).
+
+Over a mesh's model axis (``parallel/``) an adapter is split with its
+weight (:func:`shard_adapter`): a column-split weight's adapter splits ``b``
+over the output features, a row-split one's ``a`` over the input features,
+and the other factor is whole on every model rank, its gradient summed over
+the axis (``BaseExecutor._collect_grads``).
 """
 
 from __future__ import annotations
@@ -77,15 +83,16 @@ def target_names(model: nn.Module, targets) -> list:
 
 
 def init_lora(model: nn.Module, spec: LoraSpec, generator: torch.Generator,
-              device=None) -> Adapters:
+              device=None, shapes: Optional[Dict[str, tuple]] = None) -> Adapters:
     """An adapter for each targeted weight: ``a`` Gaussian over sqrt(in),
     ``b`` zeros, so the merged model starts exactly at the base. Draws in
     ``named_modules`` order from ``generator`` (the JAX package splits a
-    ``jax.random`` key: the same distribution, not the same draws).
+    ``jax.random`` key: the same distribution, not the same draws), at the
+    weights' ``shapes`` where given (a split model's full shapes).
     Raises when the targets match no weight."""
     out: Adapters = {}
     for name in target_names(model, spec.targets):
-        d_out, d_in = model.get_parameter(name).shape
+        d_out, d_in = (shapes or {}).get(name) or model.get_parameter(name).shape
         a = torch.randn(d_in, spec.rank, generator=generator, device=generator.device)
         out[name] = {"a": (a / d_in**0.5).to(device or generator.device),
                      "b": torch.zeros(spec.rank, d_out, device=device or generator.device)}
@@ -93,6 +100,18 @@ def init_lora(model: nn.Module, spec: LoraSpec, generator: torch.Generator,
         raise ValueError(f"LORA_TARGETS={spec.targets} matched no kernel in the model: "
                          "check the module names (e.g. 'attn' covers q/k/v/o)")
     return out
+
+
+def shard_adapter(adapter: Dict[str, torch.Tensor], dim: int, rank: int, parts: int
+                  ) -> Dict[str, torch.Tensor]:
+    """The part ``rank`` of ``parts`` of the adapter of a weight split along
+    ``dim`` (the port's layout: 0 splits the output features, 1 the input
+    features): ``b`` (r, out) sliced by output feature, or ``a`` (in, r) by
+    input feature, so :func:`merged_weight` of the parts is the part of the
+    merged weight."""
+    key, axis = ("b", 1) if dim == 0 else ("a", 0)
+    size = adapter[key].shape[axis] // parts
+    return dict(adapter, **{key: adapter[key].narrow(axis, rank * size, size)})
 
 
 def merged_weight(base: torch.Tensor, adapter: Dict[str, torch.Tensor],

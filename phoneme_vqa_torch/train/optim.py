@@ -208,12 +208,12 @@ class Adafactor:
         self.decay_rate = decay_rate
         self.clipping_threshold = clipping_threshold
         self.eps = eps
-        # over a mesh (``parallel/optimizer.py``): the model group, each
-        # split parameter's split dimension in flax's view and every
+        # over a mesh (``parallel/optimizer.py``): each split parameter's
+        # split dimensions in flax's view, each with the group it is split
+        # over (the model axis's, and ZeRO-1's data axis), and every
         # parameter's global shape in that view, so the factored axes and
         # the means are the one-process ones
-        self.tp_group = None
-        self.view_split: Dict[str, int] = {}
+        self.view_splits: Dict[str, Dict[int, object]] = {}
         self.global_shapes: Dict[str, tuple] = {}
 
     trainable = Adam.trainable
@@ -230,15 +230,17 @@ class Adafactor:
     def _shape(self, name: str, view: torch.Tensor) -> tuple:
         return self.global_shapes.get(name, tuple(view.shape))
 
-    def _mean(self, t: torch.Tensor, dim: int, split: Optional[int], length: int,
+    @staticmethod
+    def _mean(t: torch.Tensor, dim: int, splits: dict, length: int,
               keepdim: bool = False) -> torch.Tensor:
-        """``t.mean(dim)`` over the global tensor: summed over the model
-        group where ``dim`` is the split one (``length``: its global size)."""
-        if split != dim:
+        """``t.mean(dim)`` over the global tensor: summed over the group that
+        splits ``dim``, where one does (``length``: its global size)."""
+        group = splits.get(dim)
+        if group is None:
             return t.mean(dim, keepdim=keepdim)
         from ..parallel.tensor_parallel import all_reduce
 
-        return all_reduce(t.sum(dim, keepdim=keepdim), self.tp_group) / length
+        return all_reduce(t.sum(dim, keepdim=keepdim), group) / length
 
     def init(self, params: Dict[str, torch.Tensor]) -> dict:
         state = {"count": 0, "v_row": {}, "v_col": {}, "v": {}}
@@ -269,7 +271,7 @@ class Adafactor:
             kernel = n in self.kernels
             g = _flax_view(grads[n], kernel)
             grad_sqr = g * g + self.eps
-            shape, split = self._shape(n, g), self.view_split.get(n)
+            shape, splits = self._shape(n, g), self.view_splits.get(n, {})
             if n in state["v"]:
                 v = state["v"][n]
                 v.copy_(decay * v + keep * grad_sqr)
@@ -277,19 +279,22 @@ class Adafactor:
             else:
                 d1, d0 = self._factored_dims(shape)
                 v_row, v_col = state["v_row"][n], state["v_col"][n]
-                v_row.copy_(decay * v_row + keep * self._mean(grad_sqr, d0, split, shape[d0]))
-                v_col.copy_(decay * v_col + keep * self._mean(grad_sqr, d1, split, shape[d1]))
+                v_row.copy_(decay * v_row + keep * self._mean(grad_sqr, d0, splits, shape[d0]))
+                v_col.copy_(decay * v_col + keep * self._mean(grad_sqr, d1, splits, shape[d1]))
                 reduced_d1 = d1 - 1 if d1 > d0 else d1
-                row_split = None if split in (None, d0) else split - (split > d0)
-                row_mean = self._mean(v_row, reduced_d1, row_split, shape[d1], keepdim=True)
+                row_splits = {d - (d > d0): grp for d, grp in splits.items() if d != d0}
+                row_mean = self._mean(v_row, reduced_d1, row_splits, shape[d1], keepdim=True)
                 row_factor = (v_row / row_mean) ** -0.5
                 update = g * row_factor.unsqueeze(d0) * (v_col ** -0.5).unsqueeze(d1)
-            if split is None:
+            if not splits:
                 rms = update.square().mean().sqrt()
             else:
                 from ..parallel.tensor_parallel import all_reduce
 
-                rms = (all_reduce(update.square().sum(), self.tp_group) / math.prod(shape)).sqrt()
+                total = update.square().sum()
+                for group in splits.values():
+                    total = all_reduce(total, group)
+                rms = (total / math.prod(shape)).sqrt()
             update = update / torch.clamp(rms / self.clipping_threshold, min=1.0)
             update = lr * update
             p = _flax_view(params[n], kernel)

@@ -490,15 +490,18 @@ def test_reload_swaps_real_weights(latr, tmp_path):
 
 
 def test_unported_knobs_raise(latr, tmp_path):
-    """A mesh of more than one device is ROADMAP A15 and raises, naming it.
-    LoRA adapters and the ViT encoding cache, which raised here before, now
-    work: the engine takes adapters (checked against the base), a serve-mode
-    executor takes ``VIT_CACHE`` and the engine builds its encoding table,
-    and ``serve --adapter`` loads a LoRA run's adapters (held in full in
-    tests/test_torch_lora.py and tests/test_torch_vit_cache.py)."""
+    """Every knob that raised here before now works. A serve-mode ``MESH``
+    of more than one device in one process without a group raises the
+    ValueError that names torchrun, as train mode does (serving over a mesh
+    is held in tests/test_torch_serving_mesh.py). LoRA adapters and the ViT
+    encoding cache: the engine takes adapters (checked against the base), a
+    serve-mode executor takes ``VIT_CACHE`` and the engine builds its
+    encoding table, and ``serve --adapter`` loads a LoRA run's adapters
+    (held in full in tests/test_torch_lora.py and
+    tests/test_torch_vit_cache.py)."""
     _, t_ex, t_cfg, reqs = latr
     cfg = t_config.Config({**t_cfg, "MESH": {"data": 2}})
-    with pytest.raises(NotImplementedError, match="A15"):
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node N -m phoneme_vqa_torch.serve"):
         T_EXECUTORS.get(cfg.EXECUTOR)(cfg, "serve", device="cpu")
     name = "t5.encoder.block_0.attn.q.weight"
     d_out, d_in = t_ex.model.get_parameter(name).shape
