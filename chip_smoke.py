@@ -145,7 +145,7 @@ Phases (any failure exits non-zero; nothing is caught and carried past):
     under the flood (beside the eager infer's), p50 / p99 latency alone and
     under the flood, the device busy share of a flood window (profiler)
 15. the ContinuousEngine (32 slots, one CUDA graph replay a dispatch) over
-    LaTr-base on a grid of horizon 4, 8, 16 at prefill chunk 16 (the CLI's
+    LaTr-base on a grid of horizon 4 and 8 at prefill chunk 16 (the CLI's
     defaults: 4 x 16), then PhonemeSaL-base (12 SaL launches a prefill) at the
     grid's best point: launches per prefill chunk, the phase-14 timings, f32
     answers equal infer's, bf16 rows equal greedy's but at near-ties (twice
@@ -218,15 +218,20 @@ Phases (any failure exits non-zero; nothing is caught and carried past):
 26. serving over a mesh, from phase 25's spawned processes once their steps
     are done (phoneme_vqa_torch.dryrun.run_mesh's serve mode): full-width,
     full-depth LaTr-base in f32, two gloo processes on the one card, the
-    gathered engine at {model: 2} (64 requests in waves of 1, 3 and 60:
+    gathered engine at {model: 2} (32 requests in waves of 1, 3 and 28:
     buckets 1, 4, 32) and the continuous engine (32 slots), the gathered
-    engine at {data: 2} (buckets 2, 4, 32), SaL-base's gathered engine at
-    {model: 2} (32 requests at bucket 32); with 2 cards both LaTr-base
-    engines at {model: 2} over NCCL too (over any mesh the decode is eager).
+    engine at {data: 2} (buckets 2, 4, 32), first through the executor's
+    eager generate, then from each data rank's own CUDA graphs, in the same
+    processes; SaL-base's gathered engine at {model: 2} (32 requests at
+    bucket 32); with 2 cards the LaTr-base engines at {model: 2} over NCCL
+    too (the gathered engine eager, then both from graphs that hold the
+    model axis's collectives). Over gloo at model 2 nothing is captured.
     Rows equal this process's eager greedy rows on the same seeded weights
-    but at top-2 ties within 1e-4; every rank's launches exact (24 a LaTr
-    batch or prefill chunk at 6 heads or half the rows; 12 SaL, 0 attention
-    a SaL batch); ms a batch and answers/s per rank
+    but at top-2 ties within 1e-4; the decode each engine names; every
+    rank's launches exact (24 a LaTr batch or prefill chunk at 6 heads or
+    half the rows; 12 SaL, 0 attention a SaL batch); at model 2 every rank
+    runs as many decode chunks; ms a batch and answers/s per rank, capture s
+    and graph-decoder bytes per bucket, eager against graphs on one line
 
 Prints the run's total seconds, a {"kernels": [...]} line, the card line, and last
 {"ok": true, "device": {...}}. Needs the repo's phoneme_vqa_torch package;
@@ -384,8 +389,24 @@ def has_special_tokens(answers) -> bool:
     return any(SPECIAL_TOKEN.search(a) for a in answers)
 
 
+_T0 = time.perf_counter()
+PHASE_DONE_S: dict = {}  # "phase N" -> seconds into the run of its last line
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
+    m = re.match(r"phase [0-9]+[a-z]?", msg)
+    if m:
+        PHASE_DONE_S[m.group(0)] = time.perf_counter() - _T0
+
+
+def phase_seconds() -> dict:
+    """Each phase's seconds from the last line of the phase logged before
+    it to its own last line, in the order the phases ended."""
+    out, prev = {}, 0.0
+    for key, t in sorted(PHASE_DONE_S.items(), key=lambda kv: kv[1]):
+        out[key], prev = round(t - prev, 1), t
+    return out
 
 
 def card_line() -> str:
@@ -1943,7 +1964,7 @@ def first_device_batch(ex, dataset):
     return ex._device_batch(batch)
 
 
-def paired_ms(fn, ref, *args, rounds=3):
+def paired_ms(fn, ref, *args, rounds=2):
     """Host-clock ms of ``fn(*args)`` and ``ref(*args)``, each ended by a
     synchronize, taken in turns (fn, ref, ref, fn) ``rounds`` times after a
     warm-up call of each, so host drift falls on both: (median ms of fn,
@@ -2411,7 +2432,8 @@ BUCKETS = [1, 4, BATCH]
 BUSY_REQUESTS = 64  # the flood window the profiler traces
 CONT_REQUESTS = 128
 # phase 15's grid: decode steps a dispatch x rows a prefill, at BATCH slots
-CONT_GRID = [(h, 16) for h in (4, 8, 16)]
+# (horizon 16 was never the best point: dropped to keep the script's time)
+CONT_GRID = [(h, 16) for h in (4, 8)]
 STALL_TIMEOUT_S = 2.0
 
 
@@ -3853,7 +3875,7 @@ def _gate_mesh(phase, what, record, ref, lr) -> dict:
 
 
 # phase 26: serving over a mesh at full depth, from phase 25's processes
-MESH_SERVE_REQUESTS = 64
+MESH_SERVE_REQUESTS = 32
 MESH_SERVE_WAVES = [1, 3]  # then the rest: buckets 1 (2 at data 2), 4, 32
 FULL_DEPTH = dict(num_encoder_layers=T5_BASE["num_encoder_layers"],
                   num_t5_decoder_layers=T5_BASE["num_t5_decoder_layers"],
@@ -3883,23 +3905,27 @@ def served_reference(config, reqs) -> list:
 def serve_specs(reqs, config: dict, engines=("gathered",), buckets=BUCKETS,
                 waves=MESH_SERVE_WAVES) -> list:
     """``run_mesh``'s serve specs for phase 26: token rows, MAX_ANSWER, the
-    gathered engine in ``waves`` over ``buckets`` and the continuous engine
-    at BATCH slots (phase 15's 4 x 16)."""
+    gathered engine in ``waves`` over ``buckets`` (``gathered_eager``: the
+    same through the executor's eager generate, the graphs' yardstick) and
+    the continuous engine at BATCH slots (phase 15's 4 x 16)."""
     common = dict(requests=[list(r) for r in reqs], config=config, rows=True,
                   max_answer=MAX_ANSWER)
-    specs = {"gathered": dict(common, batch_size=BATCH, buckets=buckets, waves=waves,
-                              max_wait_ms=20),
+    gathered = dict(common, batch_size=BATCH, buckets=buckets, waves=waves, max_wait_ms=20)
+    specs = {"gathered": gathered, "gathered_eager": dict(gathered, eager_decode=True),
              "continuous": dict(common, engine="continuous", num_slots=BATCH,
                                 prefill_chunk=16, horizon=4)}
     return [specs[e] for e in engines]
 
 
-def check_served(phase, what, served, engines, ref, per_batch: dict, decode: str) -> dict:
+def check_served(phase, what, served, engines, ref, per_batch: dict, decode: str,
+                 same_chunks: bool = False) -> dict:
     """One mesh run's served specs against ``ref`` (``served_reference``):
     rows identical but at top-2 ties within TIE_MARGIN, every rank's
     launches ``per_batch`` times its batches (gathered) or prefill chunks
-    (continuous), the decode ``stats()`` names; ms a batch and answers/s a
-    rank."""
+    (continuous), the decode ``stats()`` names (``decode``; ``eager`` for
+    ``gathered_eager``), with ``same_chunks`` (a model axis) every rank's
+    count of decode chunks equal; ms a batch and answers/s a rank, each
+    bucket's capture s and graph-decoder bytes."""
     out = {}
     for engine, ranks in zip(engines, served):
         rows, parted, margin = ranks[0]["answers"], 0, 0.0
@@ -3907,23 +3933,29 @@ def check_served(phase, what, served, engines, ref, per_batch: dict, decode: str
             p, m = tie_parted(f"{phase} {what} {engine}", rows[j * BATCH:j * BATCH + len(ref_rows)],
                               ref_rows, seen)
             parted, margin = parted + p, max(margin, m)
+        want = "eager" if engine == "gathered_eager" else decode
         per_rank = []
         for r in ranks:
             st = r["stats"]
-            units = st["batches"] if engine == "gathered" else st["prefill_chunks"]
+            units = st["prefill_chunks"] if engine == "continuous" else st["batches"]
             check_launches(f"{phase} {what} {engine} rank {r['rank']}", r["launches"],
                            {k: n * units for k, n in per_batch.items()})
-            if st["decode"] != decode:
+            if st["decode"] != want:
                 raise AssertionError(f"{phase} {what} {engine}: decode {st['decode_reason']!r}, "
-                                     f"want {decode}")
-            busy_s = st["decode_s"] if engine == "gathered" else st["dispatch_s"]
-            steps = st["batches"] if engine == "gathered" else st["decode_dispatches"]
+                                     f"want {want}")
+            busy_s = st["dispatch_s"] if engine == "continuous" else st["decode_s"]
+            steps = st["decode_dispatches"] if engine == "continuous" else st["batches"]
             per_rank.append({"rank": r["rank"], "units": units, "launches": r["launches"],
-                             "ms_per_" + ("batch" if engine == "gathered" else "dispatch"):
+                             "ms_per_" + ("dispatch" if engine == "continuous" else "batch"):
                                  1e3 * busy_s / max(steps, 1),
                              "answers_per_s": len(rows) / r["wall_s"],
                              "engine_start_s": r["engine_start_s"],
+                             "capture_s": r["capture_s"], "decoder_bytes": r["decoder_bytes"],
+                             "decode_chunks": st.get("decode_chunks"),
                              "bucket_batches": st.get("bucket_batches")})
+        chunks = [p["decode_chunks"] for p in per_rank]
+        if same_chunks and engine == "gathered" and len(set(chunks)) != 1:
+            raise AssertionError(f"{phase} {what}: the model ranks ran {chunks} decode chunks")
         out[engine] = {"rows": len(rows), "rows_parted": parted, "parted_margin": margin,
                        "decode_reason": ranks[0]["stats"]["decode_reason"], "ranks": per_rank,
                        "seconds_rank0": ranks[0].get("executor_build_s", 0.0)
@@ -3931,10 +3963,19 @@ def check_served(phase, what, served, engines, ref, per_batch: dict, decode: str
         log(f"phase 26: {what}, {engine} engine ({card_line()}): {len(rows)} rows, parted "
             f"{parted} at ties (margin {margin:.2e}); decode {out[engine]['decode_reason']!r}; "
             + "; ".join(f"rank {p['rank']}: launches {p['launches']} over {p['units']} "
-                        + ("batches" if engine == "gathered" else "prefill chunks") + ", "
+                        + ("prefill chunks" if engine == "continuous" else "batches") + ", "
                         + ", ".join(f"{k} {v:.3f}" for k, v in p.items() if k.startswith("ms_"))
                         + f" ms, {p['answers_per_s']:.3f} answers/s, buckets {p['bucket_batches']}"
+                        + f", decode chunks {p['decode_chunks']}, capture s {p['capture_s']}, "
+                        f"graph-decoder bytes {p['decoder_bytes']}"
                         for p in per_rank))
+    if "gathered_eager" in out and "gathered" in out:
+        e, g = out["gathered_eager"]["ranks"], out["gathered"]["ranks"]
+        log(f"phase 26: {what}, eager against graphs in one call ({card_line()}): "
+            + "; ".join(f"rank {a['rank']}: {a['ms_per_batch']:.3f} against {b['ms_per_batch']:.3f}"
+                        f" ms a batch, {a['answers_per_s']:.3f} against {b['answers_per_s']:.3f} "
+                        f"answers/s, capture s {b['capture_s']}, graph-decoder bytes "
+                        f"{b['decoder_bytes']}" for a, b in zip(e, g)))
     return out
 
 
@@ -3985,10 +4026,13 @@ def mesh_phase(root) -> dict:
              ("b_data", "2 gloo processes on one card, data 2", {"data": 2}, 2, "gloo", False),
              ("b_data_zero1", "2 gloo processes on one card, data 2, ZeRO-1",
               {"data": 2, "zero1": True}, 2, "gloo", False)]
-    # phase 26's engines a run, and the decode each must report
-    serve_runs = {"nccl_model": (("gathered", "continuous"), "eager"),
+    # phase 26's engines a run, and the decode each must report: each rank
+    # replays its own graphs at data 2 and over NCCL at model 2 (the model
+    # axis's collectives captured inside); over gloo at model 2 nothing is
+    # captured. The eager yardstick first, in the same processes
+    serve_runs = {"nccl_model": (("gathered_eager", "gathered", "continuous"), "graphs"),
                   "b_model": (("gathered", "continuous"), "eager"),
-                  "b_data": (("gathered",), "eager")}
+                  "b_data": (("gathered_eager", "gathered"), "graphs")}
     for key, what, mesh, world, backend, beam in runs:
         t0 = time.perf_counter()
         engines, decode = serve_runs.get(key, ((), None))
@@ -3997,7 +4041,8 @@ def mesh_phase(root) -> dict:
                           serve=serve_specs(reqs, FULL_DEPTH, engines) if engines else None)
         if engines:
             serving[key] = check_served("phase 26", f"LaTr-base {what}", record["serve"], engines,
-                                        served_ref, encode, decode)
+                                        served_ref, encode, decode,
+                                        same_chunks=mesh.get("model", 1) > 1)
         res = _gate_mesh(phase, what, record, dict(ref, beam_rows=ref["beam_rows"] if beam
                                                    else None), lr)
         for r in record["ranks"]:  # every ViT, encoder, decoder self and cross layer
@@ -4036,7 +4081,7 @@ def mesh_phase(root) -> dict:
         "phase 26", "SaL-base 2 gloo processes on one card, model 2", record["serve"],
         ("gathered",), sal_served_ref, {"flash_attention": 0,
                                         "sal_fused_attention": T5_BASE["num_encoder_layers"]},
-        "eager")
+        "eager", same_chunks=True)
     res = _gate_mesh(phase, "SaL-base, model 2", record,
                      dict(sal_ref, rows=None), float(sal_ref["ex"]._lr_schedule(0)))
     per_rank = record["ranks"][0]["launches_per_step"]
@@ -4480,6 +4525,7 @@ def main() -> None:
                               "prestu_f32_step": prestu_f32},
                     "decode_variants": variants, "serving_engines": engines,
                     "finetune": finetune, "across_cards": across, "card": card}))
+    log(f"seconds a phase (from the previous phase's last line): {json.dumps(phase_seconds())}")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card_line())

@@ -149,6 +149,7 @@ def _serve(rank: int, ex, spec: dict, out: str) -> dict:
     from .ops import flash_attention, sal_fused_attention
     from .serve import load_adapter
     from .serving import ContinuousEngine, ServingEngine
+    from .serving.graphs import decoder_bytes
 
     kw = dict(max_answer_length=int(spec.get("max_answer", 10)),
               group_timeout_s=float(spec.get("group_timeout_s", 120.0)))
@@ -162,12 +163,15 @@ def _serve(rank: int, ex, spec: dict, out: str) -> dict:
                     for name, path in spec.get("adapters", {}).items()}
         engine = ServingEngine(ex, *ex.serve_frames, batch_size=int(spec.get("batch_size", 4)),
                                max_wait_ms=float(spec.get("max_wait_ms", 50)),
-                               buckets=spec.get("buckets"), adapters=adapters or None, **kw)
+                               buckets=spec.get("buckets"), adapters=adapters or None,
+                               eager_decode=bool(spec.get("eager_decode")), **kw)
     start_s = time.perf_counter() - t0
     kernels = (flash_attention, sal_fused_attention)
     for module in kernels:  # the warmup's launches are not the served batches'
         module.LAUNCHES = 0
-    record = {"rank": rank, "engine_start_s": start_s}
+    record = {"rank": rank, "engine_start_s": start_s, "capture_s": engine.capture_s,
+              "decoder_bytes": {b: decoder_bytes(d) for b, d in
+                                getattr(engine, "_decoders", {}).items()}}
     t0 = time.perf_counter()
     if rank == 0:
         reqs = [tuple(r) + (None,) * (3 - len(r)) for r in spec["requests"]]
@@ -340,7 +344,8 @@ def run_mesh(config: dict, world: int, device: str = "cuda", backend: str = None
     ([image_id, question(, adapter)]), ``engine`` (``gathered`` or
     ``continuous``), ``config`` (keys over ``config`` for the serve-mode
     executor), ``init`` (full parameters), ``rows`` (answers as token
-    rows), ``waves``, ``batch_size``, ``buckets``, ``max_wait_ms``,
+    rows), ``eager_decode`` (the gathered engine's eager yardstick),
+    ``waves``, ``batch_size``, ``buckets``, ``max_wait_ms``,
     ``max_answer``, ``adapters`` ({name: a LoRA run's SAVE_PATH}),
     ``num_slots``, ``prefill_chunk``, ``horizon``, ``group_timeout_s`` (the
     groups' timeout: one for every spec of a run) and ``kill_follower``

@@ -35,9 +35,16 @@ broadcasts the plan; every rank applies it (:meth:`ContinuousEngine._execute`).
 Each data rank owns ``num_slots / data`` slots (``num_slots`` must divide
 the axis) and featurizes and prefills the chunks admitted into them; the
 model ranks of a data rank hold the same slots at ``H / model`` heads each.
-Every rank dispatches together, eagerly (``serving/engine.py:
-MESH_EAGER``), and the horizon's tokens come back to rank 0 over the
-link's gloo data group. The other ranks run :meth:`ContinuousEngine.follow`.
+Every rank dispatches together, and the horizon's tokens come back to rank
+0 over the link's gloo data group. The other ranks run
+:meth:`ContinuousEngine.follow`. Prefills and dispatches run on one thread
+a rank (rank 0's worker, a follower's loop) in the plan's order, so every
+rank issues the model axis's collectives in one order. The dispatch follows
+``serving/engine.py: captured_decode``: each rank captures its own dispatch
+graph at warmup over its ``num_slots / data`` slots (at model 1 no
+collective is inside; over NCCL at model > 1 the model axis's collectives
+are captured inside), and over gloo at model > 1 the dispatch runs
+uncaptured.
 """
 
 from __future__ import annotations
@@ -60,9 +67,9 @@ from ..models.generate import decode_token_ids
 from ..utils.logger import get_logger
 from .engine import (
     GROUP_TIMEOUT_S,
-    MESH_EAGER,
     DeviceStream,
     _Request,
+    captured_decode,
     coerce_image_id,
     control_link,
     engine_device,
@@ -70,6 +77,7 @@ from .engine import (
     prometheus_text,
     serving_mesh,
     store_key_type,
+    warm_model_group,
 )
 from .encoding_cache import EncodingCache
 from .graphs import capture, check_params_in_place, param_addresses
@@ -227,11 +235,8 @@ class ContinuousEngine:
         # prefill takes the vit_encodings input
         self._enc_cache = EncodingCache.maybe_build(executor)
         self._stream = DeviceStream(engine_device(executor))
-        self._captures = self._stream.stream is not None and self._mesh is None
-        self.decode_reason = (
-            MESH_EAGER if self._mesh is not None else "graphs: each dispatch replayed from its "
-            "CUDA graph" if self._captures else "graphs: the dispatch's operations, run eagerly "
-            "off the card")
+        self._captures, self.decode_reason = captured_decode(engine_device(executor), self._mesh,
+                                                             "each dispatch")
         if self._mesh is not None:
             log.info(f"## continuous serving over a mesh ({self._mesh.describe()}), "
                      f"{self.S_local} of {self.S} slots a data rank; decode {self.decode_reason}")
@@ -353,6 +358,7 @@ class ContinuousEngine:
         self._load_chunk(cache, enc_mask, src, [], [])
         self._dummy = (cache, enc_mask, src)
         if self._captures:
+            warm_model_group(self._mesh)
             self._graph_pool = torch.cuda.graph_pool_handle()
             self._graph = capture(self._advance, self._graph_pool)
         else:
@@ -488,6 +494,8 @@ class ContinuousEngine:
             self._load_chunk(cache, enc_mask, src, slots, kills)
         if self._graph is not None:
             self._graph.replay()
+        elif self._captures:
+            raise RuntimeError("the dispatch graph was dropped: the engine stopped")
         else:
             self._advance()
         st, n = self._state, self.S_local
@@ -664,7 +672,16 @@ class ContinuousEngine:
                     log.warning("(!) stop(): abandoning worker stuck on a dead device "
                                 "(daemon thread)")
                 break
+        if not self._worker.is_alive():
+            self._close_graph()
         self._watchdog.close()
+
+    def _close_graph(self) -> None:
+        """Drop the dispatch graph once no thread dispatches; a later
+        dispatch raises (``GraphDecoder.close`` says why: over NCCL, before
+        the process group goes)."""
+        self._stream.synchronize()
+        self._graph = None
 
     def __enter__(self):
         return self
@@ -1038,7 +1055,7 @@ class ContinuousEngine:
                 if plan["dispatch"]:
                     with self._stats_lock:
                         self._dispatches += 1
-        self._stream.synchronize()
+        self._close_graph()
         self._watchdog.close()
 
     def _collect_tokens(self, live, toks_np, lps_np, neff_np) -> None:

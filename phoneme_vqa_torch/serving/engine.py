@@ -48,15 +48,19 @@ the data axis; each data rank featurizes and decodes its block of the
 bucket's rows (``parallel/mesh.py: serve_rows``), the model ranks of a data
 rank together, and the answers come back to rank 0 over a second gloo
 group of the link's (one group a thread of rank 0's, so each group's
-operations keep one order on every rank). The decode and its collectives
-run on rank 0's resolver thread alone, so every rank issues them in one
-order. Over a mesh the decode runs eagerly (:data:`MESH_EAGER`): gloo's
-collectives go through the host and cannot be captured in a CUDA graph,
-and a decode captured with NCCL's collectives inside is not proven on the
-cards (ROADMAP C3), so no mesh captures one; ``stats()`` and the log say
-so. Rank 0 broadcasts a no-op after ``group_timeout_s / 4`` seconds idle,
-so a follower that died fails its next collective within
-``group_timeout_s``: the engine turns unhealthy.
+operations keep one order on every rank). A batch's encode and decode, and
+so every collective of the model axis, run in the resolver's ``resolve``
+alone (rank 0's resolver thread, a follower's loop), one batch after the
+other: every rank issues them in one order. The decode follows
+:func:`captured_decode`: each rank captures its own graphs at its share of
+each bucket (``bucket / data`` rows) at warmup, in bucket order, so every
+model rank captures together; at model 1 the decode holds no collective,
+and over NCCL at model > 1 the model axis's collectives are captured inside
+the graphs. Over gloo at model > 1 nothing is captured (gloo's collectives
+go through the host) and the graph decoder's chunks run uncaptured;
+``stats()`` and the log name the decode. Rank 0 broadcasts a no-op after
+``group_timeout_s / 4`` seconds idle, so a follower that died fails its
+next collective within ``group_timeout_s``: the engine turns unhealthy.
 """
 
 from __future__ import annotations
@@ -172,24 +176,53 @@ def decodes_with_graphs(executor) -> bool:
             and bool(executor._decodes_greedy()))
 
 
-#: the decode of an engine over a mesh, as its stats() and log name it
-MESH_EAGER = ("eager: over a mesh the decode is not captured (gloo's collectives go through the "
-              "host; a capture with NCCL's collectives inside is not proven: ROADMAP C3)")
+def captured_decode(device, mesh=None, what: str = "each bucket's decode") -> tuple:
+    """(whether ``what`` is captured in CUDA graphs, the decode's name and
+    why) for a greedy decode on ``device`` over ``mesh`` (None: one
+    process): the rule both engines follow, decided before warmup from the
+    mesh's backend and its model axis. Over gloo at model > 1 nothing is
+    captured: gloo's collectives go through the host. Off the card the
+    same operations run eagerly. Otherwise each process captures its own
+    graphs: at model 1 they hold no collective, over NCCL at model > 1 the
+    model axis's collectives are captured inside."""
+    if mesh is not None and mesh.tp > 1 and mesh.backend != "nccl":
+        return False, (f"eager: over {mesh.backend} at model {mesh.tp} {what} is not captured "
+                       "(gloo's collectives go through the host, outside any CUDA graph); the "
+                       "same operations run uncaptured")
+    if device is None or device.type != "cuda":
+        return False, f"graphs: {what} runs the captured operations eagerly, off the card"
+    if mesh is None:
+        return True, f"graphs: {what} replayed from its CUDA graphs"
+    if mesh.tp == 1:
+        return True, (f"graphs: {what} replayed from the CUDA graphs each data rank captures for "
+                      "its rows (model 1: no collective inside)")
+    return True, (f"graphs: {what} replayed from CUDA graphs with the model axis's NCCL "
+                  "collectives captured inside")
 
 
-def decode_mode(executor, mesh=None) -> tuple:
-    """(whether the engine decodes through the graph decoder, the decode's
-    name and why): what ``stats()["decode"]`` reports."""
+def decode_mode(executor, mesh=None, eager: bool = False) -> tuple:
+    """(whether the engine decodes through the graph decoder, whether it
+    captures the decoder's chunks in CUDA graphs, the decode's name and
+    why): what ``stats()["decode"]`` reports. ``eager``: the executor's
+    eager generate even where the graphs would serve (a yardstick)."""
     if not decodes_with_graphs(executor):
         if not hasattr(executor, "model"):
-            return False, "eager: the executor decodes in its own infer"
-        return False, ("eager: SAMPLE and beam search have no captured graphs; the executor's "
-                       "generate runs eagerly, its encode through the kernels")
-    if mesh is not None:
-        return False, MESH_EAGER
-    if engine_device(executor).type != "cuda":
-        return True, "graphs: the graph decoder's chunks, run eagerly off the card"
-    return True, "graphs: each bucket's decode replayed from its CUDA graphs"
+            return False, False, "eager: the executor decodes in its own infer"
+        return False, False, ("eager: SAMPLE and beam search have no captured graphs; the "
+                              "executor's generate runs eagerly, its encode through the kernels")
+    if eager:
+        return False, False, ("eager: asked for (eager_decode); the executor's generate, its "
+                              "encode through the kernels")
+    return (True, *captured_decode(engine_device(executor), mesh))
+
+
+def warm_model_group(mesh) -> None:
+    """One all-reduce on the model axis's group, on the current stream.
+    Over NCCL a group's communicator is made at its first collective,
+    which must not fall inside a capture: every rank calls this before its
+    first one."""
+    if mesh is not None and mesh.tp > 1:
+        dist.all_reduce(torch.zeros(1, device=torch.cuda.current_device()), group=mesh.tp_group)
 
 
 def serving_mesh(executor):
@@ -348,6 +381,9 @@ class ServingEngine:
     group_timeout_s: over a mesh, the timeout of the engine's control
         group; rank 0 sends a no-op after a quarter of it idle (module
         docstring). Build every rank's engine with the same arguments.
+    eager_decode: decode through the executor's eager generate even where
+        the graph decoder would serve (``stats()`` names it): the yardstick
+        the graphs are timed against.
     """
 
     def __init__(
@@ -368,6 +404,7 @@ class ServingEngine:
         access_log=None,
         stall_timeout_s: float = 300.0,
         group_timeout_s: float = GROUP_TIMEOUT_S,
+        eager_decode: bool = False,
     ):
         self.executor = executor
         self.ocr_store = ocr_store
@@ -456,7 +493,8 @@ class ServingEngine:
         # the vit_encodings input
         self._enc_cache = EncodingCache.maybe_build(executor, self._adapters)
         self._stream = DeviceStream(engine_device(executor))
-        self._graphs, self.decode_reason = decode_mode(executor, self._mesh)
+        self._graphs, self._captures, self.decode_reason = decode_mode(executor, self._mesh,
+                                                                       eager_decode)
         if self._mesh is not None:
             log.info(f"## serving over a mesh ({self._mesh.describe()}), buckets {self.buckets}; "
                      f"decode {self.decode_reason}")
@@ -467,12 +505,14 @@ class ServingEngine:
         if self._graphs:
             executor._ensure_params()
             self._param_addresses = param_addresses(executor.model)
-        if self._graphs and self._stream.stream is not None:
+        if self._captures:
             self._graph_pool = torch.cuda.graph_pool_handle()
             warmup = True
         if warmup:
             ds = self._featurize([self._dummy_request()])
             with self._stream.scope():
+                if self._captures:
+                    warm_model_group(self._mesh)
                 for bucket in self.buckets:  # one order on every rank of a mesh
                     self._infer_async(ds, bucket)()
             self._stream.synchronize()
@@ -605,6 +645,9 @@ class ServingEngine:
                 "decode": self.decode_reason.split(":")[0],
                 "decode_reason": self.decode_reason,
                 **({"mesh": self._mesh.describe()} if self._mesh is not None else {}),
+                # chunks of decode steps run (the all-done exit is read after
+                # each): every model rank of a data rank runs as many
+                "decode_chunks": sum(d.chunks_run for d in list(self._decoders.values())),
                 "batches": self._batches,
                 "decode_s": self._decode_s,
                 "cache_hits": self._cache_hits,
@@ -702,7 +745,16 @@ class ServingEngine:
                     log.warning("(!) stop(): abandoning pipeline thread(s) stuck on a dead "
                                 "device (daemon threads)")
                 break
+        if not (self._worker.is_alive() or self._resolver.is_alive()):
+            self._close_graphs()
         self._watchdog.close()
+
+    def _close_graphs(self) -> None:
+        """Close the graph decoders once no thread decodes
+        (``GraphDecoder.close``: over NCCL, before the process group goes)."""
+        self._stream.synchronize()
+        for decoder in self._decoders.values():
+            decoder.close()
 
     def _on_stall(self, label: str, waited: float) -> None:
         self._fail_inflight(RuntimeError(
@@ -830,24 +882,27 @@ class ServingEngine:
         return ds
 
     def _decoder(self, dataset, bucket: int) -> GraphDecoder:
-        """The bucket's graph decoder, built at its first batch (on the card:
-        at construction, on the engine's stream)."""
+        """The bucket's graph decoder over this rank's rows of it (over a
+        mesh ``bucket / data``), built at its first batch (on the card: at
+        construction, on the engine's stream)."""
         if bucket not in self._decoders:
-            batch, _ = next(batch_iterator(dataset, bucket, pad_final=True))
+            rows = bucket // self._data_axis()
+            batch, _ = next(batch_iterator(dataset, rows, pad_final=True))
             t0 = time.perf_counter()
             self._decoders[bucket] = GraphDecoder(
                 self.executor.model, self.executor._device_batch(batch), self.max_answer_length,
-                self.confidence, self._graph_pool)
+                self.confidence, self._graph_pool, captured=self._captures)
             self._stream.synchronize()
             self.capture_s[bucket] = time.perf_counter() - t0
         return self._decoders[bucket]
 
     def _infer_async(self, dataset, bucket: int):
         """``executor.infer_async`` at ``bucket`` (through the bucket's graph
-        decoder where the engine has graphs); a stub executor that has only
+        decoder where the engine has one); a stub executor that has only
         ``infer`` answers at dispatch. Over a mesh, the decode of this rank's
-        rows at its share of the bucket, run in the returned ``resolve``
-        with its collectives (:meth:`_mesh_batch` gathers the answers)."""
+        rows at its share of the bucket, encode included, run in the
+        returned ``resolve`` with its collectives (:meth:`_mesh_batch`
+        gathers the answers)."""
         infer_async = getattr(self.executor, "infer_async", None)
         if infer_async is None:
             answers = self.executor.infer(dataset, bucket, self.max_answer_length,
@@ -856,9 +911,10 @@ class ServingEngine:
         if self._mesh is not None:
             rows = bucket // self._mesh.dp
 
-            def run():  # eager over a mesh (MESH_EAGER)
+            def run():  # on the resolver: one order of collectives on every rank
+                kw = {"decoder": self._decoder(dataset, bucket)} if self._graphs else {}
                 return infer_async(dataset, rows, self.max_answer_length,
-                                   return_scores=self.confidence, local=True)()
+                                   return_scores=self.confidence, local=True, **kw)()
 
             return run
         kw = {"decoder": self._decoder(dataset, bucket)} if self._graphs else {}
@@ -931,7 +987,7 @@ class ServingEngine:
                     self._batches += 1
                     self._bucket_batches[message["bucket"]] = \
                         self._bucket_batches.get(message["bucket"], 0) + 1
-        self._stream.synchronize()
+        self._close_graphs()
         self._watchdog.close()
 
     def _run(self):

@@ -20,11 +20,16 @@ batch replays them:
   steps of a chunk past the exit change nothing that is read;
 * a capture that fails raises: on a CUDA device the decode never falls
   back to the eager loop. On the CPU nothing is captured and the same
-  operations run eagerly (the caller asked for the CPU).
+  operations run eagerly (the caller asked for the CPU); so they do on the
+  card where the caller passes ``captured=False`` (over gloo, below).
 
 Graphs cannot be serialized, so every process captures its own at warmup
-(``serving/aot.py`` keeps the built kernels only). Over a mesh the engines
-decode eagerly and capture nothing (``serving/engine.py: MESH_EAGER``). The graphs read the
+(``serving/aot.py`` keeps the built kernels only). Over a mesh each rank
+captures its share of each bucket; the model axis's NCCL collectives are
+captured inside, and over gloo at model > 1 the chunks run uncaptured
+(``serving/engine.py: captured_decode``). Every model rank of a data rank
+reads the same gathered logits, so it leaves the loop after the same chunk
+(``chunks_run`` counts them). The graphs read the
 parameters at their addresses: a reload must copy into the parameters'
 storage (``BaseExecutor.load_params`` does), never rebind them;
 :func:`param_addresses` lets an engine check that.
@@ -83,10 +88,12 @@ class GraphDecoder:
     ``with_scores`` the mean emitted-token log-probabilities. ``finish``
     calls run one at a time (the engine's resolver thread). ``example``:
     a device batch of this size, whose encode sizes the buffers. On a CUDA
-    device the caller sets the stream that captures and replays."""
+    device the caller sets the stream that captures and replays;
+    ``captured=False`` runs the chunks there uncaptured (their collectives
+    go through the host)."""
 
     def __init__(self, model, example: dict, max_length: int, with_scores: bool = False,
-                 pool=None):
+                 pool=None, captured: bool = True):
         self.model = model.eval()  # the decode captured without dropout, as generate runs it
         self.max_length = int(max_length)
         self.with_scores = bool(with_scores)
@@ -107,7 +114,9 @@ class GraphDecoder:
             self.count = torch.empty(b, dtype=torch.float32, device=enc_mask.device)
             self._load(cache, full_bias, enc_mask)
             self.graphs = None
-            if enc_mask.is_cuda:
+            self.chunks_run = 0
+            self.closed = False
+            if captured and enc_mask.is_cuda:
                 self.graphs = [capture(lambda c=c: self._steps(c), pool) for c in self.chunks]
 
     @property
@@ -144,7 +153,16 @@ class GraphDecoder:
                                        self.sum_lp, self.count, self.eos, self.pad, 0,
                                        self.with_scores)
 
+    def close(self) -> None:
+        """Drop the captured graphs; a later batch raises. NCCL does not
+        tear a communicator down while a graph that holds its collectives
+        lives (the process hangs at exit), so an engine closes its decoders
+        when it stops, before its process group goes."""
+        self.graphs, self.closed = None, True
+
     def start(self, batch: dict) -> Callable[[], object]:
+        if self.closed:
+            raise RuntimeError("the graph decoder was closed (its engine stopped)")
         rows = int(next(iter(batch.values())).shape[0])
         if rows != self.batch_size:
             raise ValueError(f"a batch of {rows} rows for the decoder of {self.batch_size}")
@@ -160,6 +178,7 @@ class GraphDecoder:
                 self._steps(chunk)
             else:
                 self.graphs[j].replay()
+            self.chunks_run += 1
             if bool(self.done.all()):
                 break
         out = self.out.clone()

@@ -6,7 +6,10 @@ through the gathered engine's eager decode:
 * the gathered engine at ``{model: 2}`` and ``{data: 2}`` answers as the
   JAX ``ServingEngine`` on bridged weights and as the port's one-process
   engine (a lone request at the smallest bucket, then a burst), and the
-  continuous engine as one process (``tests/test_continuous.py:491``);
+  continuous engine as one process (``tests/test_continuous.py:491``),
+  both through the graph decoder's chunks (the CPU captures nothing) and
+  named by the capture rule, which is also tested alone over (backend,
+  data, model, device);
   buckets round up to the data axis (``tests/test_serving.py:211``). The
   engines answer token rows here (each executor's ``_decode_rows`` swapped
   for the identity): the offline fallback tokenizer decodes only pieces
@@ -91,8 +94,9 @@ def mesh_run(latr, mesh: str) -> dict:
     under ZeRO-1 with the pool decode at data 2), then the serve mode on
     the bridged weights: the gathered engine (a lone request, then the
     rest), the continuous engine, and at model 2 the gathered engine
-    serving the epoch's adapter, at data 2 the fault drill (rank 1 killed,
-    rank 0's engine watched)."""
+    serving the epoch's adapter, at data 2 the gathered engine's eager
+    yardstick (``eager_decode``) and the fault drill (rank 1 killed, rank
+    0's engine watched)."""
     if mesh not in _RUNS:
         root = latr["root"] / mesh
         common = dict(requests=[list(r) for r in latr["reqs"]], init=latr["init"],
@@ -103,7 +107,8 @@ def mesh_run(latr, mesh: str) -> dict:
             specs.append(dict(common, requests=adapter_requests(latr), batch_size=4,
                               adapters={"tuned": str(root)}))
         else:
-            specs.append(dict(common, batch_size=4, kill_follower=True))
+            specs += [dict(common, batch_size=4, buckets=[1, 2], eager_decode=True),
+                      dict(common, batch_size=4, kill_follower=True)]
         config = {**latr["cfg"], **TRAIN[mesh], "SAVE": True, "SAVE_PATH": str(root),
                   "MESH": MESHES[mesh]}
         _RUNS[mesh] = run_mesh(config, 2, device="cpu", epochs=1, steps=0, beams=0, serve=specs,
@@ -121,7 +126,18 @@ def test_engines_over_a_mesh_answer_as_jax_and_one_process(latr, mesh):
     assert gathered[0]["answers"] == latr["jax"] == latr["one"]
     assert continuous[0]["answers"] == latr["infer"]
     rank0 = gathered[0]["stats"]
-    assert rank0["decode"] == "eager" and "gloo" in rank0["decode_reason"]
+    # the decode named as it runs: over gloo at model 2 uncaptured (gloo's
+    # collectives go through the host), at data 2 the graph decoder's
+    want = ("eager", "gloo") if mesh == "model2" else ("graphs", "off the card")
+    for ranks in (gathered, continuous):
+        for r in ranks:
+            assert r["stats"]["decode"] == want[0] and want[1] in r["stats"]["decode_reason"]
+    # both meshes go through the graph decoder's chunks; the model ranks of
+    # a data rank leave every batch's loop at the same chunk
+    chunks = [r["stats"]["decode_chunks"] for r in gathered]
+    assert min(chunks) > 0
+    if mesh == "model2":
+        assert chunks[0] == chunks[1]
     assert rank0["served"] == len(latr["reqs"]) and rank0["failed"] == 0
     # the lone request rode the smallest bucket: 1 at model 2, rounded up to
     # the data axis (2) at data 2; every rank stepped every batch
@@ -133,8 +149,18 @@ def test_engines_over_a_mesh_answer_as_jax_and_one_process(latr, mesh):
         assert sum(r["stats"]["prefill_chunks"] for r in continuous) >= 3
 
 
+def test_the_eager_yardstick_answers_as_the_graph_decoder_at_data_2(latr):
+    """``eager_decode``: the executor's eager generate over the mesh, named
+    so, gives the graph decoder's rows."""
+    eager = mesh_run(latr, "data2")["serve"][2]
+    assert eager[0]["answers"] == latr["one"]
+    for r in eager:
+        assert r["stats"]["decode"] == "eager" and "eager_decode" in r["stats"]["decode_reason"]
+        assert r["stats"]["decode_chunks"] == 0 and not r["decoder_bytes"]
+
+
 def test_a_killed_follower_turns_rank_0_unhealthy(latr):
-    drill = mesh_run(latr, "data2")["serve"][2][0]
+    drill = mesh_run(latr, "data2")["serve"][-1][0]
     assert drill["answers"] == latr["one"]
     assert drill["unhealthy_reason"] is not None
     assert drill["seconds_to_unhealthy"] < GROUP_TIMEOUT_S, drill
@@ -254,6 +280,52 @@ def test_sample_engine_answers_as_infer_at_the_same_call_counter(latr):
         assert eng.stats()["decode"] == "eager"
     assert got == want
     assert len(set(want)) > 1  # sampled, not a constant answer
+
+
+@pytest.mark.parametrize("backend,dp,tp,device,captured,name,says", [
+    (None, 1, 1, "cpu", False, "graphs", "off the card"),
+    (None, 1, 1, "cuda", True, "graphs", "CUDA graphs"),
+    ("gloo", 2, 1, "cpu", False, "graphs", "off the card"),
+    ("gloo", 1, 2, "cpu", False, "eager", "gloo"),
+    ("gloo", 2, 1, "cuda", True, "graphs", "model 1"),
+    ("gloo", 1, 2, "cuda", False, "eager", "gloo"),
+    ("gloo", 2, 2, "cuda", False, "eager", "gloo"),
+    ("nccl", 2, 1, "cuda", True, "graphs", "model 1"),
+    ("nccl", 1, 2, "cuda", True, "graphs", "NCCL collectives captured inside"),
+    ("nccl", 2, 2, "cuda", True, "graphs", "NCCL collectives captured inside"),
+])
+def test_decode_mode_follows_the_mesh_backend_and_model_axis(backend, dp, tp, device, captured,
+                                                             name, says):
+    """Both engines' rule, decided before warmup: over gloo at model > 1
+    nothing is captured; off the card the operations run eagerly; else
+    each rank captures its own graphs. A failed capture raises (no
+    fallback), so the name is what runs."""
+    from phoneme_vqa_torch.serving.engine import captured_decode, decode_mode
+
+    mesh = None if backend is None else types.SimpleNamespace(backend=backend, dp=dp, tp=tp)
+    stub = types.SimpleNamespace(model=object(), device=torch.device(device),
+                                 _decodes_greedy=lambda: True)
+    through, got, reason = decode_mode(stub, mesh)
+    assert through and got is captured and reason.split(":")[0] == name and says in reason
+    cont = captured_decode(torch.device(device), mesh, "each dispatch")
+    assert cont[0] is captured and cont[1].split(":")[0] == name and "each dispatch" in cont[1]
+    assert decode_mode(stub, mesh, eager=True)[:2] == (False, False)
+    stub._decodes_greedy = lambda: False  # sampling: eager on any mesh
+    assert decode_mode(stub, mesh)[:2] == (False, False)
+
+
+def test_a_stopped_engine_closes_its_graph_decoders(latr):
+    """``stop()`` closes the graph decoders (over NCCL a communicator is
+    not torn down while a graph holding its collectives lives); a closed
+    decoder refuses a batch instead of decoding without its graphs."""
+    ex = T_EXECUTORS.get(latr["cfg"].EXECUTOR)(latr["cfg"], "eval", device="cpu")
+    ex.load_params(torch.load(latr["init"], weights_only=True))
+    with ServingEngine(ex, *ex.serve_frames, **GATHERED) as eng:
+        eng.answer(*latr["reqs"][0], timeout=TIMEOUT)
+        assert not any(d.closed for d in eng._decoders.values())
+    assert eng._decoders and all(d.closed and d.graphs is None for d in eng._decoders.values())
+    with pytest.raises(RuntimeError, match="closed"):
+        eng._decoders[4].start({})
 
 
 def test_decodes_with_graphs_is_false_for_sampling_on_the_card():

@@ -1,9 +1,11 @@
 """Serving on the card beyond one greedy process: a beam search and a
 ``SAMPLE`` config answer through the gathered engine's eager decode as
 ``executor.infer`` does (sampling at the same call counter), and the
-gathered and continuous engines over a mesh answer as one process, their
-decode eager: two gloo processes sharing the card and, with two cards,
-two NCCL ranks.
+gathered and continuous engines over a mesh answer as one process: two
+gloo processes sharing the card (at data 2 each replays its own CUDA
+graphs; at model 2 gloo's collectives go through the host and nothing is
+captured) and, with two cards, two NCCL ranks at model 2 whose graphs
+hold the model axis's collectives. ``run_mesh``'s timeout fails a hang.
 
 Every test here needs a CUDA card; each skips inside the ``cuda`` fixture
 (or, for the NCCL mesh, inside the test when there is one card). The card
@@ -76,7 +78,7 @@ def test_beam_and_sample_serve_on_the_card_as_infer(cuda, paths, tmp_path, knobs
     assert s["decode"] == "eager" and not eng._decoders
 
 
-def _mesh_serving(paths, root, backend: str) -> tuple:
+def _mesh_serving(paths, root, backend: str, mesh: dict) -> tuple:
     cfg = config(paths, root, DTYPE="float32")
     reqs = [list(r) for r in requests(cfg)]
     one = EXECUTORS.get(cfg["EXECUTOR"])(Config(cfg), "serve", device="cuda")
@@ -85,29 +87,38 @@ def _mesh_serving(paths, root, backend: str) -> tuple:
     with ServingEngine(one, *one.serve_frames, batch_size=4, max_wait_ms=50,
                        max_answer_length=MAX_ANSWER) as eng:
         want = [f.result(timeout=120) for f in [eng.submit(i, q) for i, q in reqs]]
+        assert eng.stats()["decode"] == "graphs"  # one process's graph rows
     common = dict(requests=reqs, rows=True, max_answer=MAX_ANSWER)
-    served = run_mesh(dict(cfg, MESH={"model": 2}), 2, device="cuda", backend=backend, steps=0,
+    served = run_mesh(dict(cfg, MESH=mesh), 2, device="cuda", backend=backend, steps=0,
                       serve=[dict(common, batch_size=4, buckets=[1], waves=[1]),
                              dict(common, engine="continuous", num_slots=4, prefill_chunk=2,
                                   horizon=4)], timeout=300)["serve"]
     return want, served
 
 
-def test_engines_over_gloo_on_one_card_answer_as_one_process(cuda, paths, tmp_path):
-    want, served = _mesh_serving(paths, tmp_path, "gloo")
+@pytest.mark.parametrize("mesh,decode", [({"model": 2}, "eager"), ({"data": 2}, "graphs")],
+                         ids=["model2", "data2"])
+def test_engines_over_gloo_on_one_card_answer_as_one_process(cuda, paths, tmp_path, mesh,
+                                                             decode):
+    want, served = _mesh_serving(paths, tmp_path, "gloo", mesh)
     for ranks in served:
-        assert ranks[0]["answers"] == want
-        assert all(r["stats"]["decode"] == "eager" for r in ranks)
+        assert ranks[0]["answers"] == want  # bit for bit one process's graph rows
+        assert all(r["stats"]["decode"] == decode for r in ranks)
     # every rank launched the attention kernel in each batch's encode: the T5
     # encoder's 2 layers (the ViT's 5 positions stay plain, under 16)
     for r in served[0]:
         assert r["launches"]["flash_attention"] == 2 * r["stats"]["batches"] > 0
+        assert r["stats"]["decode_chunks"] > 0 and r["decoder_bytes"]
 
 
 def test_engines_over_nccl_answer_as_one_process(cuda, paths, tmp_path):
     if torch.cuda.device_count() < 2:
         pytest.skip("an NCCL mesh needs two cards")
-    want, served = _mesh_serving(paths, tmp_path, "nccl")
+    want, served = _mesh_serving(paths, tmp_path, "nccl", {"model": 2})
     for ranks in served:
         assert ranks[0]["answers"] == want
-        assert all(r["stats"]["decode"] == "eager" for r in ranks)
+        assert all(r["stats"]["decode"] == "graphs" for r in ranks)
+        assert all("NCCL" in r["stats"]["decode_reason"] for r in ranks)
+    # both model ranks left every batch's loop at the same chunk
+    chunks = [r["stats"]["decode_chunks"] for r in served[0]]
+    assert chunks[0] == chunks[1] > 0
