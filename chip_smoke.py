@@ -233,13 +233,25 @@ Phases (any failure exits non-zero; nothing is caught and carried past):
     runs as many decode chunks; ms a batch and answers/s per rank, capture s
     and graph-decoder bytes per bucket, eager against graphs on one line
 
-Prints the run's total seconds, a {"kernels": [...]} line, the card line, and last
-{"ok": true, "device": {...}}. Needs the repo's phoneme_vqa_torch package;
-imports no JAX.
+27. (run first, right after phase 2, as it reads the profiler) the
+    standalone phoneme predictor (phoneme_vqa_torch/models/phoneme_predictor.py)
+    at its default width (384 = 3 x 128, 6 layers, 8 heads of 48, d_ff 2048)
+    in f32 with seeded weights on an 82-token Vietnamese sentence with a
+    digit-bearing and a non-Vietnamese word: 6 attention launches a forward,
+    log-probs within 2e-4 of the plain path's and every argmax equal; the
+    kernel at that shape (B=1, H=8, D=48) against its plain version in f32
+    and bf16, timed beside the plain version, SDPA and the bound; the
+    forward's ms; python -m phoneme_vqa_torch.phoneme_predictor on the card
+    prints one Token line a token, those of the same predictor in process
+
+Prints each phase's seconds, the run's total seconds, a {"kernels": [...]}
+line, the card line, and last {"ok": true, "device": {...}}. Needs the
+repo's phoneme_vqa_torch package; imports no JAX.
 """
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import itertools
@@ -271,6 +283,7 @@ from phoneme_vqa_torch.decode.greedy import greedy_decode, multi_head_greedy_dec
 from phoneme_vqa_torch.decode.speculative import speculative_greedy_decode  # noqa: E402
 from phoneme_vqa_torch.models import custom_decoder as custom_decoder_mod  # noqa: E402
 from phoneme_vqa_torch.models import hf_import  # noqa: E402
+from phoneme_vqa_torch.models import phoneme_predictor as predictor_mod  # noqa: E402
 from phoneme_vqa_torch.models import t5 as t5_mod  # noqa: E402
 from phoneme_vqa_torch.models import vit as vit_mod  # noqa: E402
 from phoneme_vqa_torch.ops import _build  # noqa: E402
@@ -286,6 +299,7 @@ from phoneme_vqa_torch.models.generate import make_multi_head_beam_generate_fn  
 from phoneme_vqa_torch.phonology.analyze import CODAS, NUCLEI, ONSETS, TONE_VI  # noqa: E402
 from phoneme_vqa_torch.phonology.analyze import is_vietnamese_3  # noqa: E402
 from phoneme_vqa_torch.phonology.compose import compose_word  # noqa: E402
+from phoneme_vqa_torch.phonology.vocab import VocabBuilder  # noqa: E402
 from phoneme_vqa_torch.tokenizers import PhonemeTokenizer, StructuredPhonemeTokenizer  # noqa: E402
 from phoneme_vqa_torch.train import (  # noqa: E402
     CustomizedLaTrExecutor,
@@ -367,6 +381,7 @@ GRAD_FLOOR = 1e-6
 KERNEL_CALL_RTOL = 1e-6
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOP_PER_S = 989e12  # dense bf16 tensor-core peak
+F32_FLOP_PER_S = 67e12  # f32 outside the tensor cores (the f32 path's FMAs)
 KERNELS = {"flash_attention": fa, "sal_fused_attention": sfa}  # name -> wrapper module
 # csrc/attention_core.cuh; the ring depth is what shared memory leaves for 2
 # blocks an SM
@@ -987,7 +1002,8 @@ def tie_parted(phase, rows, ref_rows, ref_seen, offset=0, margin_allowed=TIE_MAR
     return parted, worst_margin
 
 
-ATTENTION_USERS = (t5_mod, vit_mod, custom_decoder_mod)  # modules that call the dispatch
+# modules that call the dispatch
+ATTENTION_USERS = (t5_mod, vit_mod, custom_decoder_mod, predictor_mod)
 
 
 class attention_replaced:
@@ -1126,8 +1142,8 @@ def _ms(x) -> str:
     return "not measured" if x is None else f"{x:.4f}"
 
 
-def _bound(moved_bytes, flops):
-    t_bytes, t_ops = moved_bytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+def _bound(moved_bytes, flops, flop_per_s=BF16_FLOP_PER_S):
+    t_bytes, t_ops = moved_bytes / HBM_BYTES_PER_S, flops / flop_per_s
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -4107,6 +4123,121 @@ def mesh_phase(root) -> dict:
     return out
 
 
+# -- phase 27: the standalone phoneme predictor --------------------------------
+
+# 82 tokens: 73 words, "wifi" and "abc2024" split into characters
+PREDICTOR_SENTENCE = (
+    "Hôm nay trời Hà Nội rất đẹp nên chúng tôi cùng nhau đi dạo quanh hồ Gươm ngắm cảnh "
+    "mua vài quyển sách cũ ở phố Đinh Lễ rồi ghé quán cà phê nhỏ bên đường gọi hai ly "
+    "nâu đá và một đĩa bánh ngọt trong lúc chờ bạn gửi mật khẩu wifi của quán là "
+    "abc2024 để cả nhóm xem lại những bức ảnh chụp buổi sáng ở nhà thờ lớn")
+PREDICTOR_CLI_SENTENCE = ("Chào mừng các bạn đến với thành phố Hồ Chí Minh năm 2024 xin cảm ơn "
+                          "rất nhiều")  # 21 tokens
+PREDICTOR_TOL = 2e-4  # f32 log-probs, kernels against the plain path
+
+
+def phoneme_predictor_phase() -> dict:
+    """Phase 27: the standalone phoneme predictor
+    (``models/phoneme_predictor.py``) at its full default width (3 x 128 =
+    384, 6 layers, 8 heads: head dim 48, d_ff 2048) in f32 with seeded
+    weights, on an 82-token sentence: one forward launches the attention
+    kernel once a layer; its log-probs hold within 2e-4 of the plain path's
+    and every argmax is equal. The kernel alone at the forward's shape (B=1,
+    H=8, L=82, D=48, scale 48^-0.5, q/k/v as views of (B, L, H, D) storage)
+    against its plain version in f32 and bf16, timed with the plain
+    version, SDPA and the bound; the forward's ms; then ``python -m
+    phoneme_vqa_torch.phoneme_predictor`` on the card prints the lines the
+    same predictor gives in this process. Reads the profiler, so it runs
+    right after phase 2."""
+    from phoneme_vqa_torch.phoneme_predictor import predict
+
+    phase = "phase 27"
+    t_start = time.perf_counter()
+    builder = VocabBuilder([])
+    builder.add_text(PREDICTOR_SENTENCE)
+    vocab = builder.vocab
+    model = predictor_mod.MultiTokensPredictor(vocab, device=DEVICE).eval()
+    predictor_mod.init_weights(model, torch.Generator().manual_seed(SEED))
+    triples = torch.from_numpy(predictor_mod.encode_sentence(vocab, PREDICTOR_SENTENCE)).to(DEVICE)
+    tokens = triples.shape[1]
+    layer = model.layers[0]
+    forward = lambda: model(triples)
+    out = {"tokens": tokens, "layers": len(model.layers), "heads": layer.num_heads,
+           "head_dim": layer.head_dim}
+    with torch.inference_mode():
+        reset_launches()
+        got = forward()
+        torch.cuda.synchronize()
+        out["launches_per_forward"] = launches()["flash_attention"]
+        check_launches(phase, launches(), {"flash_attention": len(model.layers),
+                                           "sal_fused_attention": 0})
+        with attention_replaced(plain_attention):
+            reset_launches()
+            want = forward()
+            torch.cuda.synchronize()
+            check_launches(phase, launches(), {name: 0 for name in KERNELS})
+            out.update(_time("plain_forward_ms", forward, iters=10, repeats=3))
+        out.update(_time("forward_ms", forward, iters=10, repeats=3))
+    for part in predictor_mod.PARTS:
+        if got[part].shape != (1, tokens, len(vocab[part])) or \
+                not torch.isfinite(got[part]).all():
+            raise AssertionError(f"{phase}: {part} log-probs {tuple(got[part].shape)} not finite "
+                                 "or not (1, T, V)")
+        torch.testing.assert_close(got[part], want[part], atol=PREDICTOR_TOL, rtol=0)
+    out["log_prob_max_abs_err"] = max(float((got[p] - want[p]).abs().max())
+                                      for p in predictor_mod.PARTS)
+    if predictor_mod.argmax_parts(vocab, got) != predictor_mod.argmax_parts(vocab, want):
+        raise AssertionError(f"{phase}: an argmax differs between the kernels and the plain path")
+
+    rows, scale = [], layer.head_dim ** -0.5
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, _, _ = _attn_inputs(1, layer.num_heads, tokens, tokens, layer.head_dim, dtype,
+                                     seed=27)
+        q, k, v = model_layout(q, k, v)
+        err = _compare(q, k, v, None, None, False, scale)
+        kernel = lambda: fa.fused_attention(q, k, v, None, None, False, scale)
+        plain = lambda: attn_mod.reference_attention(q, k, v, None, None, False, scale)
+        library = _sdpa(q, k, v, None, None, scale)
+        moved, flops = _qkvo_bytes_flops(q, k)
+        bound_ms, bound_by = _bound(moved, flops, F32_FLOP_PER_S if dtype == torch.float32
+                                    else BF16_FLOP_PER_S)
+        row = {"shape": f"phoneme_predictor_{str(dtype).replace('torch.', '')}",
+               "q": list(q.shape), "max_abs_err": err, "tol": TOL[dtype], **_time("ms", kernel),
+               **_time("plain_ms", plain), **_time("library_ms", library),
+               **_split_time("", kernel), **_split_time("library_", library),
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        rows.append(row)
+        log(f"{phase}: {json.dumps(row)}")
+    out["shapes"] = rows
+
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "phoneme_vqa_torch.phoneme_predictor",
+                        "--sentence", PREDICTOR_CLI_SENTENCE, "--seed", str(SEED)], cwd=REPO,
+                       capture_output=True, text=True, timeout=300)
+    out["cli_s"] = time.perf_counter() - t0
+    lines = r.stdout.strip().splitlines()
+    reset_launches()
+    want_lines = predict(PREDICTOR_CLI_SENTENCE, device=DEVICE.type, seed=SEED)
+    cli_launches = launches()["flash_attention"]
+    if r.returncode != 0 or lines != want_lines or \
+            [line.split(":")[0] for line in lines] != [f"Token {i + 1}"
+                                                        for i in range(len(want_lines))] or \
+            len(lines) < 16 or cli_launches != len(model.layers):
+        raise AssertionError(f"{phase}: the CLI exited {r.returncode} with {len(lines)} lines "
+                             f"against {len(want_lines)} in process ({cli_launches} launches):\n"
+                             f"{r.stdout[-1000:]}{r.stderr[-2000:]}")
+    out.update(cli_tokens=len(lines), cli_first_line=lines[0],
+               seconds=time.perf_counter() - t_start)
+    log(f"{phase}: phoneme predictor (384 wide, 6 layers, 8 heads of 48, f32) on {tokens} tokens: "
+        f"{out['launches_per_forward']} attention launches a forward; log-probs vs plain max "
+        f"|err| {out['log_prob_max_abs_err']:.3e} (tol {PREDICTOR_TOL}), every argmax equal; "
+        f"forward {out['forward_ms']:.3f} ms (plain {out['plain_forward_ms']:.3f}); the kernel "
+        f"at D=48 f32 |err| {rows[0]['max_abs_err']:.3e}, bf16 {rows[1]['max_abs_err']:.3e}; "
+        f"python -m phoneme_vqa_torch.phoneme_predictor on the card: {len(lines)} Token lines "
+        f"equal to this process's in {out['cli_s']:.1f} s ({out['seconds']:.1f} s in all)")
+    return out
+
+
 def served_mesh_launches(across: dict, kernel: str) -> dict:
     """Phase 26's launches of ``kernel`` a rank a batch (gathered) or
     prefill chunk (continuous), by run and engine."""
@@ -4129,8 +4260,23 @@ def bf16_spills(logs: dict) -> list:
     return found
 
 
+def share_bytecode() -> None:
+    """Every process this run starts (the CLIs, the mesh's ranks) imports
+    torch afresh, and where the installed packages carry no bytecode and
+    ``PYTHONDONTWRITEBYTECODE`` is set, it compiles their sources each time:
+    a bytecode cache in a temporary directory, written by the first process,
+    is read by the rest, and removed at exit."""
+    prefix = tempfile.mkdtemp(prefix="chip_smoke_bytecode_")
+    atexit.register(shutil.rmtree, prefix, ignore_errors=True)
+    os.environ["PYTHONPYCACHEPREFIX"] = prefix
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    sys.pycache_prefix = prefix
+    sys.dont_write_bytecode = False
+
+
 def main() -> None:
     t_start = time.perf_counter()
+    share_bytecode()
     card = card_line()
     log(f"phase 1: card {card}; torch {torch.__version__} cuda {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4147,10 +4293,11 @@ def main() -> None:
         raise AssertionError(f"phase 2: bf16 (TMA + wgmma) kernels spill: {spills}")
     log("phase 2: no bf16 (TMA + wgmma) kernel spills")
 
-    # phases 24 and 23 (but NUMWORKERS) first: later in a long process
+    # phases 27, 24 and 23 (but NUMWORKERS) first: later in a long process
     # torch.profiler drops CUDA kernel records (phase 24's device times
     # came out empty and phase 23's trace held 142-143 of its 144 launches
     # there; a fresh process held all: PERF.md §7)
+    predictor = phoneme_predictor_phase()
     tp_slices = tp_slice_phase()
     with tempfile.TemporaryDirectory() as early:
         knobs = knobs_phase(train_fixture(early), early)
@@ -4384,9 +4531,9 @@ def main() -> None:
         "replaces": "phoneme_vqa_tpu/ops/flash_attention.py:71",
         "design": DESIGN,
         "launches": served["launches"]["flash_attention"],
-        "max_abs_err": max(worst.values()),
-        "max_err_f32": worst[torch.float32],
-        "max_err_bf16": worst[torch.bfloat16],
+        "max_abs_err": max(*worst.values(), *(r["max_abs_err"] for r in predictor["shapes"])),
+        "max_err_f32": max(worst[torch.float32], predictor["shapes"][0]["max_abs_err"]),
+        "max_err_bf16": max(worst[torch.bfloat16], predictor["shapes"][1]["max_abs_err"]),
         # per LaTr serving batch: 12 launches at each of the two shapes
         "ms": per_batch("ms"),
         "plain_ms": per_batch("plain_ms"),
@@ -4472,6 +4619,10 @@ def main() -> None:
         "launches_per_batch_c1_served_sample":
             variants["sampling"]["c1_served"]["launches"]["flash_attention"],
         "launches_per_batch_per_rank_served_mesh": served_mesh_launches(across, "flash_attention"),
+        # phase 27: the standalone phoneme predictor's forward (head dim 48),
+        # counted, and the kernel at its shape in f32 (the demo's) and bf16
+        "launches_per_forward_phoneme_predictor": predictor["launches_per_forward"],
+        "phoneme_predictor_shapes": predictor["shapes"],
     }, {
         "name": "sal_fused_attention",
         "route": "cuda",
@@ -4524,7 +4675,8 @@ def main() -> None:
                               "phoneme_latr_f32_step": platr_f32, "steps_9c": steps_9c,
                               "prestu_f32_step": prestu_f32},
                     "decode_variants": variants, "serving_engines": engines,
-                    "finetune": finetune, "across_cards": across, "card": card}))
+                    "finetune": finetune, "across_cards": across,
+                    "phoneme_predictor": predictor, "card": card}))
     log(f"seconds a phase (from the previous phase's last line): {json.dumps(phase_seconds())}")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

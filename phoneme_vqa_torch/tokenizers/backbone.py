@@ -15,6 +15,7 @@ handling, and ``batch_decode``.
 from __future__ import annotations
 
 import hashlib
+import os
 from typing import Dict, List, Optional
 
 from ..utils.logger import get_logger
@@ -134,17 +135,42 @@ class FallbackSubwordTokenizer:
         return [self.decode(row, skip_special_tokens) for row in batch_ids]
 
 
+def _hub_caches() -> List[str]:
+    """The directories the HF hub and transformers keep downloaded repos in,
+    by their environment settings and defaults."""
+    home = os.environ.get("HF_HOME") or os.path.join(
+        os.environ.get("XDG_CACHE_HOME") or os.path.join(os.path.expanduser("~"), ".cache"),
+        "huggingface")
+    named = [os.environ.get(k) for k in ("HF_HUB_CACHE", "HUGGINGFACE_HUB_CACHE",
+                                          "TRANSFORMERS_CACHE", "PYTORCH_TRANSFORMERS_CACHE",
+                                          "PYTORCH_PRETRAINED_BERT_CACHE")]
+    return [d for d in named if d] + [os.path.join(home, "hub")]
+
+
+def _may_be_local(name: str) -> bool:
+    """False only when no local copy of ``name`` can exist: it is no path,
+    and no hub cache holds its repo."""
+    if os.path.exists(name):
+        return True
+    repo = "models--" + name.replace("/", "--")
+    return any(os.path.isdir(os.path.join(d, repo)) for d in _hub_caches())
+
+
 def load_backbone_tokenizer(name: str, vocab_size: int = 32128):
     """The HF tokenizer if it is cached locally, else the offline subword
     tokenizer. This picks a tokenizer, not a device. transformers is an
-    optional dependency, imported only here."""
-    try:
-        from transformers import AutoTokenizer
+    optional dependency, imported only here, and only when a local copy
+    may exist: its import costs a process's start many seconds, for nothing
+    where no copy is cached."""
+    if _may_be_local(name):
+        try:
+            from transformers import AutoTokenizer
 
-        return AutoTokenizer.from_pretrained(name, local_files_only=True)
-    except Exception:
-        log.info(
-            f"Backbone tokenizer {name!r} not available locally; "
-            "using deterministic offline fallback tokenizer"
-        )
-        return FallbackSubwordTokenizer(vocab_size=vocab_size)
+            return AutoTokenizer.from_pretrained(name, local_files_only=True)
+        except Exception:
+            pass
+    log.info(
+        f"Backbone tokenizer {name!r} not available locally; "
+        "using deterministic offline fallback tokenizer"
+    )
+    return FallbackSubwordTokenizer(vocab_size=vocab_size)

@@ -221,3 +221,24 @@ def test_phoneme_sal_training_roles_through_the_function(cuda, dtype, role):
 @pytest.mark.parametrize("role", list(LATR_FAMILY_ROLES))
 def test_latr_family_training_roles_through_the_function(cuda, dtype, role):
     _role_through_the_function(cuda, dtype, *LATR_FAMILY_ROLES[role])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [48, 40])
+@pytest.mark.parametrize("length", [16, 17, 64, 130])
+def test_head_dims_below_64_at_the_phoneme_predictors_shape(cuda, dtype, d, length):
+    """The standalone phoneme predictor's attention (B=1, H=8, scale d^-0.5,
+    no bias, no mask; head dim 48 at its default width, 40 beside it): D
+    pads to 64 in the f32 path and TMA zero-fills the columns past D in
+    bf16. Through the wrapper and through the dispatch on (B, H, L, D) views
+    of (B, L, H, D) storage, as the model hands them over."""
+    q, k, v, _, _ = _inputs(1, 8, length, length, d, dtype, cuda, seed=6)
+    _compare(q, k, v, None, None, False, d**-0.5)
+    views = _as_model_views(q, k, v)
+    before = fa.LAUNCHES
+    got = dot_product_attention(*views, scale=d**-0.5)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == before + 1
+    assert torch.equal(got, fa.fused_attention(q, k, v, scale=d**-0.5))
+    want = reference_attention(q.float(), k.float(), v.float(), scale=d**-0.5)
+    torch.testing.assert_close(got.float(), want, atol=TOL[dtype], rtol=TOL[dtype])

@@ -70,6 +70,31 @@ def test_backbone_tokenizer_loaders_agree():
     assert t(text)["input_ids"] == j(text)["input_ids"]
 
 
+def test_backbone_tokenizer_imports_transformers_only_for_a_local_copy(monkeypatch, tmp_path):
+    """transformers is imported (its AutoTokenizer asked) only when the name
+    is a path or a hub cache holds its repo; otherwise the fallback, as the
+    JAX loader gives when transformers finds no local copy."""
+    calls = []
+    fake = type(sys)("transformers")
+    fake.AutoTokenizer = type("AutoTokenizer", (), {"from_pretrained": staticmethod(
+        lambda name, **kw: calls.append((name, kw)) or "hf tokenizer")})
+    monkeypatch.setitem(sys.modules, "transformers", fake)
+    for key in ("HF_HUB_CACHE", "HUGGINGFACE_HUB_CACHE", "TRANSFORMERS_CACHE",
+                "PYTORCH_TRANSFORMERS_CACHE", "PYTORCH_PRETRAINED_BERT_CACHE"):
+        monkeypatch.delenv(key, raising=False)
+    monkeypatch.setenv("HF_HOME", str(tmp_path / "hf"))
+    name = "VietAI/vit5-base"
+    assert isinstance(t_backbone.load_backbone_tokenizer(name, 512), TTok) and calls == []
+    (tmp_path / "hf" / "hub" / "models--VietAI--vit5-base").mkdir(parents=True)
+    assert t_backbone.load_backbone_tokenizer(name, 512) == "hf tokenizer"
+    monkeypatch.setenv("HF_HUB_CACHE", str(tmp_path / "elsewhere"))
+    (tmp_path / "elsewhere" / "models--VietAI--vit5-base").mkdir(parents=True)
+    assert t_backbone.load_backbone_tokenizer(name, 512) == "hf tokenizer"
+    assert t_backbone.load_backbone_tokenizer(str(tmp_path), 512) == "hf tokenizer"
+    assert calls == [(name, {"local_files_only": True})] * 2 + [
+        (str(tmp_path), {"local_files_only": True})]
+
+
 @pytest.mark.parametrize("preset", ["latr.yaml", "customizedlatr.yaml", "sal.yaml"])
 def test_config_presets_and_model_dims_match_jax(preset):
     path = os.path.join(REPO_ROOT, "configs", preset)
