@@ -24,6 +24,8 @@ from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 
+from ..utils import profiling
+
 
 class ArrayDataset:
     """A dict of equal-length numpy arrays + optional lazy per-row extras."""
@@ -131,22 +133,28 @@ def prefetch(iterator, depth: int = 2):
 
 def make_image_loader(base_img_path: str, image_ids) -> Callable[[np.ndarray], np.ndarray]:
     """Lazy ViT pixel loader: ``{base}/{image_id}.npy`` dicts holding 'image',
-    stored as (1, C, H, W) or (C, H, W)."""
+    stored as (1, C, H, W) or (C, H, W). A batch's reads are a
+    ``loader.read`` span (``utils/profiling.py``) with the files and bytes."""
 
     def load(idx: np.ndarray) -> np.ndarray:
-        imgs = []
-        for i in idx:
-            image_id = image_ids[int(i)]
-            # float ids like 7.0 may be stored as "7.0.npy" or "7.npy"
-            for stem in (str(image_id), str(int(image_id))):
-                path = os.path.join(base_img_path, stem + ".npy")
-                if os.path.isfile(path):
-                    break
-            record = np.load(path, allow_pickle=True).tolist()
-            img = np.asarray(record["image"], np.float32)
-            if img.ndim == 4:
-                img = img[0]
-            imgs.append(img)
-        return np.stack(imgs)
+        with profiling.span("loader.read", kind="pixels") as sp:
+            imgs, nbytes = [], 0
+            for i in idx:
+                image_id = image_ids[int(i)]
+                # float ids like 7.0 may be stored as "7.0.npy" or "7.npy"
+                for stem in (str(image_id), str(int(image_id))):
+                    path = os.path.join(base_img_path, stem + ".npy")
+                    if os.path.isfile(path):
+                        break
+                record = np.load(path, allow_pickle=True).tolist()
+                if sp:
+                    nbytes += os.path.getsize(path)
+                img = np.asarray(record["image"], np.float32)
+                if img.ndim == 4:
+                    img = img[0]
+                imgs.append(img)
+            if sp:
+                sp.set(files=len(imgs), bytes=nbytes)
+            return np.stack(imgs)
 
     return load

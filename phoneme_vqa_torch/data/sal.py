@@ -15,7 +15,9 @@ are element-equal to the JAX package's.
 * question/answer: "<pad> "-prefixed, padded to max length; an
   ``answer_encoder(answer, max_length) -> (ids, mask)`` replaces the
   answer's encoding (the custom decoders' answer tokenizers)
-* features load lazily per batch from ``{base_*_feature_path}/{image_id}.npy``
+* features load lazily per batch from ``{base_*_feature_path}/{image_id}.npy``,
+  each stream's reads a ``loader.read`` span (``kind`` ``ocr`` or ``obj``,
+  with the files and bytes; ``utils/profiling.py``)
 * ``cache_dir`` (``FEATURE_CACHE``) keeps the packed arrays, the word
   alignments included, on disk (``feature_cache.get_or_build``)
 """
@@ -27,6 +29,7 @@ from typing import List, Sequence
 
 import numpy as np
 
+from ..utils import profiling
 from . import feature_cache
 from .latr import encode_prefixed
 from .loader import ArrayDataset
@@ -209,21 +212,29 @@ class SaLDataset:
 
     # -- lazy per-batch feature loading ----------------------------------------
 
-    def _load_npy(self, root: str, idx: int) -> dict:
+    def _npy_path(self, root: str, idx: int) -> str:
         image_id = self._image_ids[idx]
         for stem in (str(image_id), str(int(float(image_id)))):
             path = os.path.join(root, stem + ".npy")
             if os.path.isfile(path):
-                return np.load(path, allow_pickle=True).tolist()
+                return path
         raise FileNotFoundError(f"feature file for image {image_id} in {root}")
 
-    def _load_features(self, indices, root, word_ids, length, hidden, per_word) -> np.ndarray:
-        out = np.zeros((len(indices), length, hidden), np.float32)
-        for row, idx in enumerate(np.asarray(indices).tolist()):
-            words = word_ids[idx]
-            out[row] = _feature_gather(per_word(self._load_npy(root, idx)),
-                                       words[words >= 0], length, hidden)
-        return out
+    def _load_features(self, indices, root, word_ids, length, hidden, per_word,
+                       kind: str) -> np.ndarray:
+        with profiling.span("loader.read", kind=kind) as sp:
+            out = np.zeros((len(indices), length, hidden), np.float32)
+            nbytes = 0
+            for row, idx in enumerate(np.asarray(indices).tolist()):
+                words = word_ids[idx]
+                path = self._npy_path(root, idx)
+                if sp:
+                    nbytes += os.path.getsize(path)
+                out[row] = _feature_gather(per_word(np.load(path, allow_pickle=True).tolist()),
+                                           words[words >= 0], length, hidden)
+            if sp:
+                sp.set(files=len(out), bytes=nbytes)
+            return out
 
     def _load_ocr_features(self, indices) -> np.ndarray:
         return self._load_features(
@@ -231,10 +242,11 @@ class SaLDataset:
             self.ocr_hidden,
             lambda rec: np.concatenate(
                 [np.asarray(rec["det_features"]), np.asarray(rec["rec_features"])], axis=-1),
+            "ocr",
         )
 
     def _load_obj_features(self, indices) -> np.ndarray:
         return self._load_features(
             indices, self.base_obj_feature_path, self._obj_word_ids, self.max_obj_length,
-            self.obj_hidden, lambda rec: np.asarray(rec["region_features"]),
+            self.obj_hidden, lambda rec: np.asarray(rec["region_features"]), "obj",
         )

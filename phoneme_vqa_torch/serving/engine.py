@@ -16,6 +16,17 @@
   the rows back and resolves the futures. A handoff queue of depth 2
   between them lets featurizing batch i+1 overlap the decode of batch i.
   On the card both threads run on the engine's own stream.
+* **Tracing** (``utils/profiling.py``, recorded while a ``torch.profiler``
+  session runs): each gathered batch takes an id that every span of it
+  carries. The dispatcher's spans are ``engine.collect``,
+  ``engine.featurize``, ``engine.encode`` and ``engine.handoff``, and one
+  ``engine.queue`` a request (submit to claim); the resolver's tile its
+  loop: ``engine.await_batch``, ``decode.replay`` (with a ``decode.sync``
+  for each all-done read), ``decode.readback``, ``engine.detokenize``,
+  ``engine.complete``. ``stats()`` counts always: ``queue_wait_s`` over
+  ``claimed`` requests is the mean wait from submit to the dispatcher's
+  claim; ``decode_s`` the resolver's graph replays, read-back and
+  detokenize.
 
 Works with any executor family (LaTr / PreSTU / SaL x stock / customized /
 phoneme): the engine uses ``executor._make_dataset``, ``infer_async`` (or
@@ -66,6 +77,7 @@ next collective within ``group_timeout_s``: the engine turns unhealthy.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import math
 import queue
 import threading
@@ -79,6 +91,7 @@ import torch.distributed as dist
 
 from ..data.loader import batch_iterator
 from ..parallel.mesh import serve_rows
+from ..utils import profiling
 from ..utils.logger import get_logger
 from .encoding_cache import EncodingCache
 from .graphs import GraphDecoder, check_params_in_place, param_addresses
@@ -463,6 +476,9 @@ class ServingEngine:
         self._expired = 0
         self._latencies_ms: list = []
         self._decode_s = 0.0  # seconds this rank spent decoding batches
+        self._queue_wait_s = 0.0  # submit -> claim, summed over claimed requests
+        self._claimed = 0
+        self._batch_ids = itertools.count()
         self._cache_size = int(cache_size)
         self._cache: dict = {}  # (image_id, question, adapter) -> answer
         self._bucket_batches: dict = {}  # decode batch shape -> count
@@ -493,6 +509,7 @@ class ServingEngine:
         # the vit_encodings input
         self._enc_cache = EncodingCache.maybe_build(executor, self._adapters)
         self._stream = DeviceStream(engine_device(executor))
+        profiling.watch_gc()
         self._graphs, self._captures, self.decode_reason = decode_mode(executor, self._mesh,
                                                                        eager_decode)
         if self._mesh is not None:
@@ -634,7 +651,11 @@ class ServingEngine:
 
     def stats(self) -> dict:
         """Served/failed counts, batch count, queue depth, and request-latency
-        percentiles (submit -> resolution, ms) over the last 10k requests."""
+        percentiles (submit -> resolution, ms) over the last 10k requests;
+        ``queue_wait_s`` is the submit -> claim wait summed over the
+        ``claimed`` requests."""
+        with self._inflight_lock:
+            claims = {"queue_wait_s": self._queue_wait_s, "claimed": self._claimed}
         with self._stats_lock:
             lats = sorted(self._latencies_ms)
             pct = lambda p: lats[min(len(lats) - 1, int(p * len(lats)))] if lats else None  # noqa: E731
@@ -650,6 +671,7 @@ class ServingEngine:
                 "decode_chunks": sum(d.chunks_run for d in list(self._decoders.values())),
                 "batches": self._batches,
                 "decode_s": self._decode_s,
+                **claims,
                 "cache_hits": self._cache_hits,
                 "reloads": self._reloads,
                 "expired": self._expired,
@@ -992,6 +1014,7 @@ class ServingEngine:
 
     def _run(self):
         self._stream.enter()
+        profiling.tile_thread()
         try:
             self._run_inner()
         except Exception as e:  # fatal dispatcher error (lost device, dead follower, ...)
@@ -1008,21 +1031,32 @@ class ServingEngine:
         resolver replays the decode and reads the rows, so this loop is back
         to assembling the next batch while the device decodes this one."""
         while True:
-            reqs = self._collect()
+            with profiling.span("engine.collect") as sp:
+                reqs = self._collect()
+                batch = next(self._batch_ids)
+                if sp:
+                    sp.set(rows=len(reqs), batch=batch)
             if not reqs or self._unhealthy is not None:
                 self._inflight.put(None)  # drain signal for the resolver
                 return
             # claim the futures: a future cancelled while queued is dropped
             # here, and a RUNNING future can no longer be cancelled
             reqs = [r for r in reqs if r.future.set_running_or_notify_cancel()]
+            now = time.monotonic()
             with self._inflight_lock:  # visible to the stall handler
                 self._inflight_reqs.update(reqs)
+                self._claimed += len(reqs)
+                self._queue_wait_s += sum(now - r.t_submit for r in reqs)
+            if profiling.recording():
+                wall = time.time_ns() - round((time.monotonic() - now) * 1e9)
+                for r in reqs:
+                    profiling.record("engine.queue", wall - round((now - r.t_submit) * 1e9),
+                                     wall, batch=batch)
             # shed requests that cannot be served in time BEFORE featurizing:
             # one whose remaining deadline is under the measured service time
             # (EWMA of claim -> resolve) would only expire mid-decode after
             # taking a batch seat. (The gate copies the JAX engine's,
             # lock-out included: ROADMAP C.)
-            now = time.monotonic()
             min_left = self._service_ewma
             viable = lambda r: not r.deadline or r.deadline - now >= min_left  # noqa: E731
             expired = [r for r in reqs if not viable(r)]
@@ -1051,12 +1085,13 @@ class ServingEngine:
                 for r in reqs:
                     by_adapter.setdefault(r.adapter, []).append(r)
                 groups = list(by_adapter.values())
-            for group in groups:
-                self._dispatch_group(group)
+            with profiling.tag(batch=batch):
+                for group in groups:
+                    self._dispatch_group(group, batch)
 
-    def _dispatch_group(self, reqs: List[_Request]) -> None:
+    def _dispatch_group(self, reqs: List[_Request], batch: int) -> None:
         """Featurize and dispatch one batch of requests that share an
-        adapter, then hand it to the resolver."""
+        adapter, then hand it to the resolver with the batch's id."""
         work = []
         while True:
             try:
@@ -1072,19 +1107,21 @@ class ServingEngine:
                     break
         if not work and self._link is None:
             try:
-                gen = self._enc_cache.generation if self._enc_cache is not None else None
-                ds = self._featurize(reqs)
-                # a reload between featurize and dispatch flushed the table:
-                # featurize again under the new weights
-                while self._enc_cache is not None and self._enc_cache.generation != gen:
-                    gen = self._enc_cache.generation
+                with profiling.span("engine.featurize", rows=len(reqs)):
+                    gen = self._enc_cache.generation if self._enc_cache is not None else None
                     ds = self._featurize(reqs)
+                    # a reload between featurize and dispatch flushed the table:
+                    # featurize again under the new weights
+                    while self._enc_cache is not None and self._enc_cache.generation != gen:
+                        gen = self._enc_cache.generation
+                        ds = self._featurize(reqs)
                 if len(ds) != len(reqs):
                     raise RuntimeError(f"featurization dropped rows: {len(ds)} != {len(reqs)}")
                 # the smallest bucket that fits: a lone request rides the
                 # small decode instead of padding to the full shape
                 bucket = next(b for b in self.buckets if b >= len(reqs))
-                with self._watchdog.guard("decode dispatch"):
+                with self._watchdog.guard("decode dispatch"), \
+                        profiling.span("engine.encode", bucket=bucket):
                     resolve = self._infer_async(ds, bucket)
                 work.append((reqs, bucket, resolve, None))
             except Exception as e:  # the resolver reports it per request
@@ -1097,10 +1134,12 @@ class ServingEngine:
                                  "bucket": bucket})
             work = [(reqs, bucket, self._mesh_batch(keys, bucket), None)]
         # bounded handoff (depth 2): blocks when the resolver is behind
-        self._inflight.put((reqs, work))
+        with profiling.span("engine.handoff"):
+            self._inflight.put((reqs, work, batch))
 
     def _resolve_loop(self):
         self._stream.enter()
+        profiling.tile_thread()
         try:
             self._resolve_loop_inner()
         except Exception as e:  # fatal resolver error
@@ -1110,12 +1149,17 @@ class ServingEngine:
         """Resolver: decode and read back the dispatched batches, then
         complete their futures."""
         while True:
-            item = self._inflight.get()
+            with profiling.span("engine.await_batch") as sp:
+                item = self._inflight.get()
+                if sp and item is not None:
+                    sp.set(batch=item[2])
             if item is None:
                 return
+            reqs, work, batch = item
             try:
-                if not self._resolve_item(*item):
-                    return
+                with profiling.tag(batch=batch):
+                    if not self._resolve_item(reqs, work):
+                        return
             finally:
                 with self._weights_cv:
                     self._batches_in_flight -= 1
@@ -1123,7 +1167,9 @@ class ServingEngine:
 
     def _resolve_item(self, reqs, work) -> bool:
         """Resolve one handed-off batch; False when the engine turned
-        unhealthy meanwhile (its futures are already failed)."""
+        unhealthy meanwhile (its futures are already failed). The decode's
+        spans come from ``resolve`` (graph replay, read-back, detokenize);
+        ``engine.complete`` covers the rest."""
         answers_by_req: dict = {}
         bucket_by_req: dict = {}
         n_ok_groups = 0
@@ -1146,24 +1192,32 @@ class ServingEngine:
                         self._fail_inflight(e)
                         return False
                     exc = e
-            if self._unhealthy is not None:
-                return False  # the stall fired mid-wait; futures already failed
-            if exc is not None:  # resolve this group with the error
-                log.warning(f"serving batch of {len(group)} failed: {exc!r}")
-                for r in group:
-                    self._record(r, "error", error=repr(exc))
-                    fail_future(r.future, exc)
-                with self._inflight_lock:
-                    self._inflight_reqs.difference_update(group)
-                with self._stats_lock:
-                    self._failed += len(group)
-                    self._batches += 1
-                continue
-            n_ok_groups += 1
-            buckets_used.append(bucket)
-            for r, a in zip(group, answers):
-                answers_by_req[r] = a
-                bucket_by_req[r] = bucket
+            with profiling.span("engine.complete"):
+                if self._unhealthy is not None:
+                    return False  # the stall fired mid-wait; futures already failed
+                if exc is not None:  # resolve this group with the error
+                    log.warning(f"serving batch of {len(group)} failed: {exc!r}")
+                    for r in group:
+                        self._record(r, "error", error=repr(exc))
+                        fail_future(r.future, exc)
+                    with self._inflight_lock:
+                        self._inflight_reqs.difference_update(group)
+                    with self._stats_lock:
+                        self._failed += len(group)
+                        self._batches += 1
+                    continue
+                n_ok_groups += 1
+                buckets_used.append(bucket)
+                for r, a in zip(group, answers):
+                    answers_by_req[r] = a
+                    bucket_by_req[r] = bucket
+        with profiling.span("engine.complete"):
+            return self._complete(reqs, answers_by_req, bucket_by_req, n_ok_groups,
+                                  buckets_used)
+
+    def _complete(self, reqs, answers_by_req: dict, bucket_by_req: dict, n_ok_groups: int,
+                  buckets_used: list) -> bool:
+        """Resolve the futures of a batch's decoded requests and count them."""
         reqs = [r for r in reqs if r in answers_by_req]
         if not reqs:
             return True

@@ -43,6 +43,7 @@ import torch
 
 from ..decode.greedy import greedy_step, multi_head_greedy_step
 from ..models.generate import decode_token_ids
+from ..utils import profiling
 
 #: decode steps per captured graph: the all-done exit is read after each
 STEPS_PER_GRAPH = 4
@@ -172,19 +173,28 @@ class GraphDecoder:
 
     @torch.inference_mode()
     def _finish(self, cache, full_bias, enc_mask):
-        self._load(cache, full_bias, enc_mask)
-        for j, chunk in enumerate(self.chunks):
-            if self.graphs is None:
-                self._steps(chunk)
-            else:
-                self.graphs[j].replay()
-            self.chunks_run += 1
-            if bool(self.done.all()):
-                break
-        out = self.out.clone()
-        if self.with_scores:
-            return out, self.sum_lp / self.count.clamp(min=1.0)
-        return out
+        """The ``decode.replay`` span: the buffer loads and the chunks, each
+        chunk's all-done read a ``decode.sync`` (the host waits on the
+        card there)."""
+        with profiling.span("decode.replay") as sp:
+            runs = self.chunks_run
+            self._load(cache, full_bias, enc_mask)
+            for j, chunk in enumerate(self.chunks):
+                if self.graphs is None:
+                    self._steps(chunk)
+                else:
+                    self.graphs[j].replay()
+                self.chunks_run += 1
+                with profiling.span("decode.sync"):
+                    done = bool(self.done.all())
+                if done:
+                    break
+            if sp:
+                sp.set(chunks=self.chunks_run - runs)
+            out = self.out.clone()
+            if self.with_scores:
+                return out, self.sum_lp / self.count.clamp(min=1.0)
+            return out
 
 
 def decoder_bytes(decoder: Optional[GraphDecoder]) -> int:

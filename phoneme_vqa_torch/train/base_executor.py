@@ -165,6 +165,7 @@ class BaseExecutor:
         self.best_score = 0.0
         self._generate_fns: Dict = {}
         check_unported(self.config)
+        profiling.watch_gc()
         if mode == "serve" and self.config.get("DEBUG_NANS"):
             raise ValueError("DEBUG_NANS is refused in serve mode: its checks read every "
                              "module's output back to the host, and the serving decode is "
@@ -966,29 +967,47 @@ class BaseExecutor:
         """One optimizer step on a numpy batch; returns the loss (a 0-d
         tensor on the device). With ``GRAD_ACCUM_STEPS`` the batch runs as
         that many microbatches of consecutive rows, their f32 gradients
-        summed and scaled by 1/N."""
+        summed and scaled by 1/N. Traced (``utils/profiling.py``) as a
+        ``step`` span tiled by ``step.to_device``, ``step.forward``,
+        ``step.backward`` and ``step.optimizer`` (one of each a microbatch,
+        with its index, the last optimizer span the update) and
+        ``step.loss``, all tagged with the step."""
         accum = self._grad_accum_steps()
-        if accum <= 1:
-            loss = self.forward_loss(self._to_device(batch))
-            profiling.backward(loss)
-            self.apply_gradients()
-            return self._data_sum(loss.detach())
-        rows = len(next(iter(batch.values()))) // accum
-        total, summed = None, None
-        for i in range(accum):
-            micro = {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
-            loss = self.forward_loss(self._to_device(micro), micro=i)
-            profiling.backward(loss)
-            grads = self._collect_grads()
-            if summed is None:
-                summed, total = grads, loss.detach()
-            else:
-                torch._foreach_add_([summed[n] for n in grads], list(grads.values()))
-                total = total + loss.detach()
-        inv = 1.0 / accum
-        torch._foreach_mul_(list(summed.values()), inv)
-        self.apply_gradients(summed)
-        return self._data_sum(total * inv)
+        with profiling.tag(step=self.state.step), profiling.span("step", accum=accum):
+            if accum <= 1:
+                with profiling.span("step.to_device"):
+                    device_batch = self._to_device(batch)
+                with profiling.span("step.forward"):
+                    loss = self.forward_loss(device_batch)
+                with profiling.span("step.backward"):
+                    profiling.backward(loss)
+                with profiling.span("step.optimizer"):
+                    self.apply_gradients()
+                with profiling.span("step.loss"):
+                    return self._data_sum(loss.detach())
+            rows = len(next(iter(batch.values()))) // accum
+            total, summed = None, None
+            for i in range(accum):
+                with profiling.span("step.to_device", micro=i):
+                    micro = self._to_device({k: v[i * rows:(i + 1) * rows]
+                                             for k, v in batch.items()})
+                with profiling.span("step.forward", micro=i):
+                    loss = self.forward_loss(micro, micro=i)
+                with profiling.span("step.backward", micro=i):
+                    profiling.backward(loss)
+                with profiling.span("step.optimizer", micro=i):
+                    grads = self._collect_grads()
+                    if summed is None:
+                        summed, total = grads, loss.detach()
+                    else:
+                        torch._foreach_add_([summed[n] for n in grads], list(grads.values()))
+                        total = total + loss.detach()
+            inv = 1.0 / accum
+            with profiling.span("step.optimizer"):
+                torch._foreach_mul_(list(summed.values()), inv)
+                self.apply_gradients(summed)
+            with profiling.span("step.loss"):
+                return self._data_sum(total * inv)
 
     def _train_epoch(self, epoch: int) -> float:
         """One epoch of steps over the epoch-seeded shuffle. ``SAVE_EVERY_STEPS``
@@ -1129,11 +1148,13 @@ class BaseExecutor:
             rows, scores = [], []
             for finish, n_valid in pending:
                 out = finish()
-                ids = out[0] if return_scores else out
-                rows.extend(ids[:n_valid].tolist())
-                if return_scores:
-                    scores.extend(out[1][:n_valid].double().tolist())
-            return self._answers(rows, scores, return_scores)
+                with profiling.span("decode.readback"):
+                    ids = out[0] if return_scores else out
+                    rows.extend(ids[:n_valid].tolist())
+                    if return_scores:
+                        scores.extend(out[1][:n_valid].double().tolist())
+            with profiling.span("engine.detokenize", rows=len(rows)):
+                return self._answers(rows, scores, return_scores)
 
         return resolve
 
