@@ -13,8 +13,10 @@ Phases (any failure exits non-zero; nothing is caught and carried past):
 3b. the SaL kernel against its plain version (materialize the bias, then
     plain attention) over dtypes, table types, lengths, head dims, masks and
     cells, and at the SaL serving shape; views bit-equal as in phase 3
-3c. gradients through the kernels' autograd.Functions (kernel forward,
-    plain recompute backward) against the plain path's: over the phase-3
+3c. gradients through the kernels' autograd.Functions (kernel forward; in
+    bf16 the backward kernels, against the f32 plain backward and the plain
+    bf16 recompute; in f32 the plain recompute) against the plain path's:
+    over the phase-3
     option grid, at the four attention roles of a LaTr-base train step (ViT,
     T5 encoder, decoder self-attention 127 x 127 causal + bias + mask,
     cross-attention 127 x 327 + mask; B=16) and the three attention-kernel
@@ -65,7 +67,9 @@ Phases (any failure exits non-zero; nothing is caught and carried past):
     contiguous q, k, v; the SaL shape with f32 tables, and through the
     attention kernel with its key mask only, i.e. without the SaL policy)
 6d. attention kernel, plain and library times at the four roles of a
-    LaTr-base train step (B=16), and the plain backward recompute of the
+    LaTr-base train step (B=16), and the backward kernels (what the
+    Functions' backward runs in bf16, the bias's batch sum included: events
+    and profiler device time) beside the plain backward recompute of the
     three roles that carry gradients; the same at the three attention-kernel
     roles of a PhonemeSaL-base train step, at the three new roles of the
     PhonemeLaTr / PreSTU family and for the SaL kernel at its training
@@ -433,11 +437,18 @@ def card_line() -> str:
 
 def reset_launches() -> None:
     for mod in KERNELS.values():
-        mod.LAUNCHES = 0
+        mod.LAUNCHES = mod.BACKWARD_LAUNCHES = mod.RECOMPUTE_FALLBACKS = 0
 
 
 def launches() -> dict:
     return {name: mod.LAUNCHES for name, mod in KERNELS.items()}
+
+
+def backward_calls() -> dict:
+    """Each kernel's backward calls on the backward kernels and on the plain
+    recompute since ``reset_launches``."""
+    return {name: {"kernel": mod.BACKWARD_LAUNCHES, "recompute": mod.RECOMPUTE_FALLBACKS}
+            for name, mod in KERNELS.items()}
 
 
 def check_launches(phase: str, got: dict, want: dict) -> None:
@@ -719,28 +730,51 @@ def _grads(fn, tensors, w):
     return out, torch.autograd.grad((out.float() * w).sum(), wanted)
 
 
+# bf16 gradients through the backward kernels against the plain backward in
+# f32 on the same bf16 values: within GRAD_TOL in norm and no further than
+# GRAD_SLACK times the plain bf16 recompute's gap plus GRAD_TOL_FLOOR (the
+# same bounds as tests/test_torch_flash_attention_gpu.py: check_backward).
+GRAD_TOL, GRAD_SLACK, GRAD_TOL_FLOOR = 1e-2, 1.5, 2e-3
+
+
 def _check_grads(kernel_fn, plain_fn, tensors, tol, what) -> float:
     """Gradients through ``kernel_fn`` (an autograd.Function on the kernel)
     against ``plain_fn``'s on the same inputs: every input that requires
-    grad gets a finite, nonzero gradient, each within ``tol`` of the plain
-    one (the backward is the same plain recompute on the same inputs and
-    upstream gradient, so they agree to the bit unless cuBLAS picks another
-    algorithm); the kernel's forward within ``tol`` of the f32 plain result.
-    Returns the largest gradient difference."""
+    grad gets a finite, nonzero gradient; the kernel's forward within
+    ``tol`` of the f32 plain result. f32 (the plain recompute backward):
+    each gradient within ``tol`` of the plain one (the same recompute, so
+    they agree to the bit unless cuBLAS picks another algorithm); returns
+    the largest difference. bf16 (the backward kernels): each gradient's
+    relative gap in norm to the f32 plain backward within GRAD_TOL and
+    GRAD_SLACK times the plain bf16 recompute's plus GRAD_TOL_FLOOR; returns
+    the largest such gap."""
     shape = tensors[0].shape[:3] + (tensors[2].shape[3],)
     w = torch.randn(shape, generator=torch.Generator(device=DEVICE).manual_seed(9), device=DEVICE)
     k_out, k_grads = _grads(kernel_fn, tensors, w)
     _, p_grads = _grads(plain_fn, tensors, w)
+    f32 = [t if t is None else t.float() for t in tensors]
     with torch.no_grad():  # the forward against the f32 plain result, as in phase 3
-        want = plain_fn(*(t if t is None else t.float() for t in tensors))
+        want = plain_fn(*f32)
+    bf16 = tensors[0].dtype == torch.bfloat16
+    if bf16:
+        _, f32_grads = _grads(plain_fn, f32, w)
     torch.cuda.synchronize()
     torch.testing.assert_close(k_out.float(), want, atol=tol, rtol=tol)
     worst = 0.0
     for i, (g, ref) in enumerate(zip(k_grads, p_grads)):
         if g is None or not torch.isfinite(g).all() or not g.abs().max() > 0:
             raise AssertionError(f"phase 3c: {what}: input {i} got no usable gradient")
-        worst = max(worst, float((g.float() - ref.float()).abs().max()))
-        torch.testing.assert_close(g.float(), ref.float(), atol=tol, rtol=tol)
+        if not bf16:
+            worst = max(worst, float((g.float() - ref.float()).abs().max()))
+            torch.testing.assert_close(g.float(), ref.float(), atol=tol, rtol=tol)
+            continue
+        norm = f32_grads[i].float().norm()
+        gap = float((g.float() - f32_grads[i].float()).norm() / norm)
+        plain_gap = float((ref.float() - f32_grads[i].float()).norm() / norm)
+        if not (gap <= GRAD_TOL and gap <= GRAD_SLACK * plain_gap + GRAD_TOL_FLOOR):
+            raise AssertionError(f"phase 3c: {what}: input {i}: gap {gap:.3e} to the f32 plain "
+                                 f"backward, the plain bf16 recompute's {plain_gap:.3e}")
+        worst = max(worst, gap)
     return worst
 
 
@@ -791,12 +825,22 @@ def check_kernel_grads() -> dict:
             lambda *a: sfa.sal_reference_attention(*a, cell, mask),
             (q, k, v, bias1d, cb), TOL[dtype], f"SaL training shape {dtype}")
     check_launches("phase 3c", launches(), {"flash_attention": n, "sal_fused_attention": 3})
-    log(f"phase 3c: gradients through FusedAttentionFn == plain over {n} cases (the phase-3 "
+    # every bf16 case's backward on the backward kernels, every f32 case's on
+    # the recompute (the frozen ViT role runs no backward)
+    n_bf16 = n // 2
+    want_bwd = {"flash_attention": {"kernel": n_bf16, "recompute": n - n_bf16},
+                "sal_fused_attention": {"kernel": 2, "recompute": 1}}
+    if backward_calls() != want_bwd:
+        raise AssertionError(f"phase 3c: backward calls {backward_calls()}, want {want_bwd}")
+    log(f"phase 3c: gradients through FusedAttentionFn vs plain over {n} cases (the phase-3 "
         f"grid, the four LaTr-base, three PhonemeSaL-base and three PhonemeLaTr / PreSTU "
-        f"training roles at B={TRAIN_BATCH}); max |grad err| f32 {worst[torch.float32]:.3e}, bf16 "
-        f"{worst[torch.bfloat16]:.3e} (tol {TOL}); by role {json.dumps(roles)}; SalAttentionFn "
-        f"at the SaL serving shape {sal_err:.3e}, at the training shape (B={TRAIN_BATCH}) "
-        f"{json.dumps(sal_train)}; one kernel launch per forward, none in a backward")
+        f"training roles at B={TRAIN_BATCH}); f32 (plain recompute) max |grad err| "
+        f"{worst[torch.float32]:.3e} (tol {TOL}); bf16 (backward kernels) largest relative gap "
+        f"in norm to the f32 plain backward {worst[torch.bfloat16]:.3e} (bound {GRAD_TOL}, "
+        f"{GRAD_SLACK} x the plain bf16 recompute's + {GRAD_TOL_FLOOR}); by role "
+        f"{json.dumps(roles)}; SalAttentionFn at the SaL serving shape {sal_err:.3e}, at the "
+        f"training shape (B={TRAIN_BATCH}) {json.dumps(sal_train)}; one kernel launch per "
+        f"forward; backward calls {json.dumps(backward_calls())}")
     return {"max_grad_err_f32": worst[torch.float32], "max_grad_err_bf16": worst[torch.bfloat16],
             "train_roles": roles, "sal_max_grad_err": max(sal_err, *sal_train.values()),
             "sal_train_grad_err": sal_train, "cases": n + 3}
@@ -1276,7 +1320,9 @@ def time_train_shapes(shapes) -> list:
     of a train step (``training_shapes`` or ``phoneme_training_shapes``,
     B=16, bf16), each with its bound; and for the roles that carry
     gradients, the plain backward recompute (``reference_attention`` forward
-    + autograd backward, what ``FusedAttentionFn.backward`` runs) per
+    + autograd backward, what ``FusedAttentionFn.backward`` ran before the
+    backward kernels and still runs for f32) and ``FusedAttentionFn``'s own
+    backward in bf16 (the backward kernels and the bias's batch sum) per
     call."""
     rows = []
     for role, q, k, v, bias, mask, causal, scale in shapes:
@@ -1299,15 +1345,30 @@ def time_train_shapes(shapes) -> list:
             leaves = [t if t is None else t.detach().requires_grad_() for t in (q, k, v, bias)]
             wanted = [t for t in leaves if t is not None]
             g = torch.randn(b, h, lq, d, device=DEVICE).to(q.dtype)
+            fn_out = attn_mod.FusedAttentionFn.apply(*leaves, mask, causal, scale)
 
             def recompute():
                 out = attn_mod.reference_attention(*leaves, mask, causal, scale)
                 torch.autograd.grad(out, wanted, g)
 
-            row.update(_time("recompute_backward_ms", recompute, iters=10, repeats=3))
+            def backward():  # FusedAttentionFn's backward: the kernels, the bias's sum
+                torch.autograd.grad(fn_out, wanted, g, retain_graph=True)
+
+            row.update(**_time("recompute_backward_ms", recompute, iters=10, repeats=3),
+                       **_time("backward_ms", backward, iters=10, repeats=3),
+                       **_split_time("backward_", backward, iters=10, host_iters=20))
         rows.append(row)
         log(f"phase 6d: {json.dumps(row)}")
     return rows
+
+
+def backward_device_ms(counted_rows):
+    """Device ms a step of the Functions' backward: the sum of ``n`` times
+    each phase-6d row's ``backward_device_ms`` over ``(n, row)`` pairs;
+    None (not measured) where a row has none."""
+    times = [n * row["backward_device_ms"] if row["backward_device_ms"] is not None else None
+             for n, row in counted_rows]
+    return None if None in times else sum(times)
 
 
 def _recompute_backward(fn, tensors, g):
@@ -1324,8 +1385,9 @@ def _recompute_backward(fn, tensors, g):
 def time_sal_train_shape() -> dict:
     """Phase 6d: the SaL kernel at the SaL encoder of a SaL-family train
     step (B=16, bf16, bf16 tables): kernel, plain, SDPA on the pre-built
-    bias, its bound, and the plain recompute backward (what
-    ``SalAttentionFn.backward`` runs) per call."""
+    bias, its bound, the plain recompute backward (what
+    ``SalAttentionFn.backward`` runs for f32) and ``SalAttentionFn``'s own
+    backward in bf16 (the backward kernels and the tables' sums) per call."""
     q, k, v, bias1d, cb, cell, mask = sal_serving_shape(TRAIN_BATCH, seed=36)
     kernel = lambda: sfa.sal_fused_attention(q, k, v, bias1d, cb, cell, mask)
     plain = lambda: sfa.sal_reference_attention(q, k, v, bias1d, cb, cell, mask)
@@ -1336,12 +1398,20 @@ def time_sal_train_shape() -> dict:
     g = torch.randn(q.shape, device=DEVICE).to(q.dtype)
     recompute = _recompute_backward(
         lambda *a: sfa.sal_reference_attention(*a, cell, mask), (q, k, v, bias1d, cb), g)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v, bias1d, cb)]
+    fn_out = sfa.SalAttentionFn.apply(*leaves, cell, mask)
+
+    def backward():  # SalAttentionFn's backward: the kernels, the tables' sums
+        torch.autograd.grad(fn_out, leaves, g, retain_graph=True)
+
     row = {"shape": "sal_encoder_train", "q": list(q.shape), "dtype": "bfloat16",
            "tables": "bfloat16", **_time("ms", kernel), **_time("plain_ms", plain),
            **_time("library_ms", library), **_split_time("", kernel),
            **_split_time("library_", library), "library_excludes": "bias materialization",
            "bound_ms": bound_ms, "bound_by": bound_by,
-           **_time("recompute_backward_ms", recompute, iters=10, repeats=3)}
+           **_time("recompute_backward_ms", recompute, iters=10, repeats=3),
+           **_time("backward_ms", backward, iters=10, repeats=3),
+           **_split_time("backward_", backward, iters=10, host_iters=20)}
     log(f"phase 6d: {json.dumps(row)}")
     return row
 
@@ -1450,7 +1520,7 @@ def timed_steps(ex, batches) -> float:
 
 
 def train_and_predict(phase, title, ex_cls, config, per_step: dict, per_eval: dict,
-                      extra=None) -> dict:
+                      extra=None, backward_per_step=None) -> dict:
     """Phases 7, 8 and 9: one epoch of TRAIN_STEPS steps through ``ex_cls``
     (``train()``: the epoch, eval, last/best saves), the last checkpoint
     restored, predict into results.json (an answer tokenizer's answers free
@@ -1459,7 +1529,8 @@ def train_and_predict(phase, title, ex_cls, config, per_step: dict, per_eval: di
     share, peak memory; ``extra(ex, batches, out)`` adds a phase's own
     measurements; and one batch repeated REPEAT_STEPS times must lower its
     loss. ``per_step`` / ``per_eval``: each kernel's launches a train step /
-    an eval or predict batch."""
+    an eval or predict batch; ``backward_per_step``: each kernel's backward
+    calls a step, all on the backward kernels (none recomputed)."""
     save = config.SAVE_PATH
     t0 = time.perf_counter()
     ex = ex_cls(config, "train", device=DEVICE)
@@ -1524,6 +1595,11 @@ def train_and_predict(phase, title, ex_cls, config, per_step: dict, per_eval: di
     torch.cuda.synchronize()
     step_launches = launches()
     check_launches(f"{phase} one step", step_launches, per_step)
+    step_backward = backward_calls()
+    if backward_per_step is not None and step_backward != {
+            k: {"kernel": n, "recompute": 0} for k, n in backward_per_step.items()}:
+        raise AssertionError(f"{phase} one step: backward calls {step_backward}, want "
+                             f"{backward_per_step} on the backward kernels")
     step_ms = timed_steps(ex, batches[1:6])
     split = {"forward_ms": 0.0, "backward_ms": 0.0, "optimizer_ms": 0.0}
     for batch in batches[6:8]:
@@ -1549,7 +1625,8 @@ def train_and_predict(phase, title, ex_cls, config, per_step: dict, per_eval: di
         "train_epoch_s": train_s, "steps": TRAIN_STEPS, "losses": losses, "eval_batches": n_eval,
         "train_launches": train_launches, "predict_s": predict_s,
         "predict_answers": [g[:60] for g in gens[:3]], "checkpoint_gb": ckpt_bytes / 1e9,
-        "launches_per_step": step_launches, "launches_per_eval_batch": per_eval, "ms_per_step": step_ms,
+        "launches_per_step": step_launches, "backward_calls_per_step": step_backward,
+        "launches_per_eval_batch": per_eval, "ms_per_step": step_ms,
         "samples_per_s": 1e3 * TRAIN_BATCH / step_ms, **split, "peak_memory_gb": peak_gb, **prof,
         "device_busy_share": prof["device_busy_ms_per_step"] / step_ms,
     }
@@ -1600,9 +1677,12 @@ def train_latr(paths, recompute_ms_per_step) -> dict:
             f"{flops['step_tflop']:.3f} TFLOP/step = {out['share_of_bf16_peak']:.4f} of the bf16 "
             f"peak")
 
+    # the frozen ViT's 12 calls take no gradient: 36 backward calls
+    backward = {"flash_attention": per_step["flash_attention"] - FULL["vit_num_layers"],
+                "sal_fused_attention": 0}
     return train_and_predict("phase 7", "LaTr-base", LaTrExecutor,
                              latr_train_config(paths, os.path.join(paths["root"], "ckpts")),
-                             per_step, per_eval, extra)
+                             per_step, per_eval, extra, backward)
 
 
 def noisy_attention(generator):
@@ -1826,7 +1906,7 @@ def train_phoneme_sal(paths) -> dict:
 
     return train_and_predict("phase 8", "PhonemeSaL-base", PhonemeSaLExecutor,
                              phoneme_train_config(paths, os.path.join(paths["root"], "psal_ckpts")),
-                             per_step, per_eval, extra)
+                             per_step, per_eval, extra, per_step)
 
 
 # -- phases 4d, 4e, 5d, 5e and 9-9d: the PhonemeLaTr and PreSTU families ---------
@@ -4551,6 +4631,10 @@ def main() -> None:
         "train_step_bound_ms": per_step("bound_ms"),
         "train_step_library_ms": per_step("library_ms"),
         "train_step_recompute_backward_ms": recompute,
+        "train_step_backward_ms": sum(n_t5 * r["backward_ms"] for r in train_shapes
+                                      if "backward_ms" in r),
+        "train_step_backward_device_ms": backward_device_ms(
+            [(n_t5, r) for r in train_shapes if "backward_ms" in r]),
         "train_shapes": train_shapes,
         "max_grad_err_f32": grads["max_grad_err_f32"],
         "max_grad_err_bf16": grads["max_grad_err_bf16"],
@@ -4562,6 +4646,12 @@ def main() -> None:
         "phoneme_sal_train_step_ms": n_custom * sum(r["ms"] for r in psal_shapes[:2]),
         "phoneme_sal_train_step_recompute_backward_ms": n_custom * sum(
             r["recompute_backward_ms"] for r in psal_shapes[:2]),
+        # the custom decoder's 8 calls a step (the SaL encoder's 12: the
+        # sal_fused_attention entry)
+        "phoneme_sal_train_step_backward_ms": n_custom * sum(
+            r["backward_ms"] for r in psal_shapes[:2]),
+        "phoneme_sal_train_step_backward_device_ms": backward_device_ms(
+            [(n_custom, r) for r in psal_shapes[:2]]),
         "phoneme_sal_train_shapes": psal_shapes,
         # the PhonemeLaTr / PreSTU families (phases 3c, 4d, 4e, 6d, 9, 9c): the
         # serving launches of the main path's runs, the new roles' rows and
@@ -4651,6 +4741,8 @@ def main() -> None:
         "train_step_bound_ms": n_t5 * sal_train_shape["bound_ms"],
         "train_step_library_ms": n_t5 * sal_train_shape["library_ms"],
         "train_step_recompute_backward_ms": n_t5 * sal_train_shape["recompute_backward_ms"],
+        "train_step_backward_ms": n_t5 * sal_train_shape["backward_ms"],
+        "train_step_backward_device_ms": backward_device_ms([(n_t5, sal_train_shape)]),
         "train_shapes": [sal_train_shape],
         "max_grad_err_bf16": grads["sal_max_grad_err"],
         "launches_per_batch_beam_phoneme_sal":

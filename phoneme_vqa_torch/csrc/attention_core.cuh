@@ -790,7 +790,7 @@ inline cudaError_t prepare(const void* kernel, int threads, int bytes, int* per_
     const void* kernel;
     int device, bytes, per_sm, sms;
   };
-  constexpr int N = 16;
+  constexpr int N = 32;
   static thread_local Seen seen[N];
   static thread_local int n_seen = 0;
   int device = 0;

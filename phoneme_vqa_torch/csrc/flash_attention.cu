@@ -38,7 +38,7 @@
 // again from L2 (226 MB at B=32), as large as its K and V tiles together.
 // f32: CUDA-core FMAs, bias and mask read per logit.
 
-#include "attention_core.cuh"
+#include "attention_bwd.cuh"
 
 // The logit policy: scale, dense bias, key mask, causal mask.
 struct DenseBias {
@@ -70,11 +70,39 @@ struct DenseBias {
       if (causal && col > row) x = attn::NEG_INF_LOGIT;
       return x;
     }
+
+    // backward: whether the logit is the product's (not replaced by -1e9,
+    // not past Lk), so its gradient reaches q, k and the bias
+    __device__ __forceinline__ bool live(int lr, int j, int k0) const {
+      const int row = q0 + lr, col = k0 + j;
+      return col < Lk && !(maskb && maskb[col] == 0) && !(causal && col > row);
+    }
   };
 
   __device__ __forceinline__ Block block(char*, int b, int h, int q0) const {
     return {bias ? bias + b * bias_sb + h * bias_sh : nullptr,
             mask ? mask + (long long)b * Lk : nullptr, bias_sl, Lq, Lk, q0, causal, scale};
+  }
+
+  // ---- backward (attention_bwd.cuh): a block that owns key tile k0 and
+  // walks the query tiles; nothing to stage
+  static constexpr size_t kKeySmemBytes = 0;
+
+  struct KeyBlock {
+    Block blk;  // at q0 = 0, so its block row is the query row itself
+    int k0;
+
+    __device__ __forceinline__ void stage_rows(int) const {}
+    __device__ __forceinline__ float logit(float x, int lr, int j, int q0) const {
+      return blk.logit(x, q0 + lr, j, k0);
+    }
+    __device__ __forceinline__ bool live(int lr, int j, int q0) const {
+      return blk.live(q0 + lr, j, k0);
+    }
+  };
+
+  __device__ __forceinline__ KeyBlock key_block(char* smem, int b, int h, int k0) const {
+    return {block(smem, b, h, 0), k0};
   }
 
   // ---- bf16 path
@@ -162,6 +190,24 @@ struct DenseBias {
   }
 };
 
+// The policy of one call: bias (bias_batch = 1|B, H, Lq, Lk) by element
+// strides sb = (b, h, l), or null; mask (B, Lk) or null.
+static DenseBias dense_policy(const void* bias, const void* mask, const long long* sb,
+                              int bias_batch, int Lq, int Lk, int causal, float scale) {
+  DenseBias policy{};
+  policy.bias = static_cast<const float*>(bias);
+  policy.mask = static_cast<const int*>(mask);
+  policy.bias_sb = sb[0];
+  policy.bias_sh = sb[1];
+  policy.bias_sl = sb[2];
+  policy.bias_batch = bias_batch;
+  policy.Lq = Lq;
+  policy.Lk = Lk;
+  policy.causal = causal;
+  policy.scale = scale;
+  return policy;
+}
+
 // Returns 0 once launched, else a CUDA error or attn::ERR_TENSOR_MAP. Shapes
 // and layouts are checked by the Python wrapper: q (B,H,Lq,D), k and v
 // (B,H,Lk,D), out (B,H,Lq,D), each by element strides (b, h, l) with a unit
@@ -178,17 +224,25 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   const long long* s = strides;
   const attn::Layout lay{{s[0], s[1], s[2]}, {s[3], s[4], s[5]}, {s[6], s[7], s[8]},
                          {s[9], s[10], s[11]}};
-  DenseBias policy{};
-  policy.bias = static_cast<const float*>(bias);
-  policy.mask = static_cast<const int*>(mask);
-  policy.bias_sb = s[12];
-  policy.bias_sh = s[13];
-  policy.bias_sl = s[14];
-  policy.bias_batch = bias_batch;
-  policy.Lq = Lq;
-  policy.Lk = Lk;
-  policy.causal = causal;
-  policy.scale = scale;
-  return attn::launch(q, k, v, out, B, H, Lq, Lk, D, lay, is_bf16, policy,
+  return attn::launch(q, k, v, out, B, H, Lq, Lk, D, lay, is_bf16,
+                      dense_policy(bias, mask, s + 12, bias_batch, Lq, Lk, causal, scale),
                       static_cast<cudaStream_t>(stream));
+}
+
+// The backward of the same call (attention_bwd.cuh), bf16 only: o the
+// forward's output, g the upstream gradient, dq, dk, dv bf16 outputs, all
+// (B, H, L, D) by element strides as above; stats (B, H, Lq) float4
+// scratch; ds (B, H, Lq, Lk) contiguous f32, or null where no bias needs a
+// gradient. strides: q, k, v, o, g, dq, dk, dv, bias, each (b, h, l).
+// Returns 0 once launched, else a CUDA error.
+extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
+                                   const void* g, const void* bias, const void* mask, void* dq,
+                                   void* dk, void* dv, void* stats, void* ds, int B, int H,
+                                   int Lq, int Lk, int D, const long long* strides,
+                                   int bias_batch, int causal, float scale, void* stream) {
+  const attn::BwdArgs a = attn::bwd_args(q, k, v, o, g, dq, dk, dv, stats, ds, strides, B, H,
+                                         Lq, Lk, D, scale);
+  return attn::launch_bwd(a, dense_policy(bias, mask, strides + 24, bias_batch, Lq, Lk, causal,
+                                          scale),
+                          static_cast<cudaStream_t>(stream));
 }

@@ -49,7 +49,7 @@
 // All shared memory is dynamic, opted in above 48 KB with
 // cudaFuncSetAttribute.
 
-#include "attention_core.cuh"
+#include "attention_bwd.cuh"
 
 #include <type_traits>
 
@@ -116,6 +116,10 @@ struct SalBias {
       }
       return x;
     }
+
+    // backward: whether the logit is the product's (the key neither masked
+    // nor past L), so its gradient reaches q, k and the tables
+    __device__ __forceinline__ bool live(int, int j, int) const { return Kf[j] == attn::KEY_ATTEND; }
   };
 
   // Stages the table rows of the block's query cells.
@@ -131,6 +135,81 @@ struct SalBias {
     }
     return {bias1d + h * b1d_sh, Rt, Ck, Ck + attn::BK, cellb,
             mask ? mask + (long long)b * L : nullptr, b1d_sl, L, C, q0};
+  }
+
+  // ---- backward (attention_bwd.cuh): a block that owns key tile k0 and
+  // walks the query tiles. It stages once the table's columns of its keys'
+  // cells, Ct[j][c] = cell_bias[h, c, cell[b, k0 + j]] widened to f32, and
+  // the keys' flags; each query tile then stages only its rows' clamped
+  // cell ids, so a logit reads bias1d and Ct[j][Cq[lr]].
+  static constexpr size_t kKeySmemBytes =
+      sizeof(float) * attn::BK * RS + sizeof(int) * (attn::BQ + attn::BK);
+
+  struct KeyBlock {
+    const TB* b1d;     // bias1d[h]
+    const float* Ct;   // (BK, RS) the keys' table columns
+    int* Cq;           // (BQ) the query tile's clamped cell ids
+    const int* Kf;     // (BK) the keys' KEY_* flags
+    const int* cellb;  // cell[b]
+    long long b1d_sl;
+    int L, C, k0;
+
+    // per query tile, between its two barriers
+    __device__ __forceinline__ void stage_rows(int q0) const {
+      const int r = threadIdx.x;
+      if (r < attn::BQ) Cq[r] = q0 + r < L ? clamp_cell(cellb[q0 + r], C) : 0;
+    }
+
+    // Block::logit's value for block row lr of the query tile at q0
+    __device__ __forceinline__ float logit(float x, int lr, int j, int q0) const {
+      const int f = Kf[j];
+      if (f == attn::KEY_PAST_L) return -INFINITY;
+      if (f == attn::KEY_MASKED) return attn::NEG_INF_LOGIT;
+      const int row = q0 + lr;
+      if (row < L) {
+        const float bias = to_f(b1d[row * b1d_sl + k0 + j]) + Ct[j * RS + Cq[lr]];
+        x = x + bias;
+      }
+      return x;
+    }
+
+    __device__ __forceinline__ bool live(int, int j, int) const { return Kf[j] == attn::KEY_ATTEND; }
+  };
+
+  // All threads; read after the next barrier. The column gathers go 16 a
+  // thread at a time, every load before its store, so the staging costs a
+  // few trips to L2; consecutive threads take consecutive keys of one cell
+  // column (stores RS floats apart: distinct banks).
+  __device__ __forceinline__ KeyBlock key_block(char* smem, int b, int h, int k0) const {
+    float* Ct = reinterpret_cast<float*>(smem);
+    int* Cq = reinterpret_cast<int*>(Ct + attn::BK * RS);
+    int* Kf = Cq + attn::BQ;
+    const int* cellb = cell + (long long)b * L;
+    const TB* cbh = cell_bias + (long long)h * C * C;
+    constexpr int U = 16;
+    for (int base = threadIdx.x; base < attn::BK * C; base += U * attn::NT) {
+      float vals[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int idx = base + u * attn::NT, key = k0 + idx % attn::BK;
+        vals[u] = idx < attn::BK * C && key < L
+                      ? to_f(cbh[(idx / attn::BK) * C + clamp_cell(cellb[key], C)])
+                      : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int idx = base + u * attn::NT;
+        if (idx < attn::BK * C) Ct[(idx % attn::BK) * RS + idx / attn::BK] = vals[u];
+      }
+    }
+    const int j = threadIdx.x;
+    if (j < attn::BK) {
+      const int key = k0 + j;
+      Kf[j] = key >= L                                ? attn::KEY_PAST_L
+              : (mask && mask[(long long)b * L + key] == 0) ? attn::KEY_MASKED
+                                                            : attn::KEY_ATTEND;
+    }
+    return {bias1d + h * b1d_sh, Ct, Cq, Kf, cellb, b1d_sl, L, C, k0};
   }
 
   // ---- bf16 path: stage info = the keys' fix-ups (BK float2), then Ck (BK
@@ -248,6 +327,28 @@ struct SalBias {
   }
 };
 
+// Calls run(SalBias<T>{...}) with the tables' type T (bf16 or f32);
+// sb = bias1d's element strides (h, row).
+template <class Run>
+static int with_sal_policy(const void* bias1d, const void* cell_bias, const void* cell,
+                           const void* mask, const long long* sb, int L, int C,
+                           int table_is_bf16, Run run) {
+  const auto make = [&](auto table) {
+    using T = decltype(table);
+    SalBias<T> p{};
+    p.bias1d = static_cast<const T*>(bias1d);
+    p.cell_bias = static_cast<const T*>(cell_bias);
+    p.cell = static_cast<const int*>(cell);
+    p.mask = static_cast<const int*>(mask);
+    p.b1d_sh = sb[0];
+    p.b1d_sl = sb[1];
+    p.L = L;
+    p.C = C;
+    return run(p);
+  };
+  return table_is_bf16 ? make(__nv_bfloat16(0.f)) : make(0.f);
+}
+
 // Returns 0 once launched, else a CUDA error or attn::ERR_TENSOR_MAP. Shapes
 // and layouts are checked by the Python wrapper: q, k, v, out (B,H,L,D) by
 // element strides (b, h, l) with a unit D stride, 16-byte aligned starts and
@@ -267,18 +368,29 @@ extern "C" int sal_fused_attention_fwd(const void* q, const void* k, const void*
   const attn::Layout lay{{s[0], s[1], s[2]}, {s[3], s[4], s[5]}, {s[6], s[7], s[8]},
                          {s[9], s[10], s[11]}};
   const auto st = static_cast<cudaStream_t>(stream);
-  const auto run = [&](auto table) {
-    using T = decltype(table);
-    SalBias<T> p{};
-    p.bias1d = static_cast<const T*>(bias1d);
-    p.cell_bias = static_cast<const T*>(cell_bias);
-    p.cell = static_cast<const int*>(cell);
-    p.mask = static_cast<const int*>(mask);
-    p.b1d_sh = s[12];
-    p.b1d_sl = s[13];
-    p.L = L;
-    p.C = C;
-    return attn::launch(q, k, v, out, B, H, L, L, D, lay, is_bf16, p, st);
-  };
-  return table_is_bf16 ? run(__nv_bfloat16(0.f)) : run(0.f);
+  return with_sal_policy(bias1d, cell_bias, cell, mask, s + 12, L, C, table_is_bf16,
+                         [&](const auto& p) {
+                           return attn::launch(q, k, v, out, B, H, L, L, D, lay, is_bf16, p, st);
+                         });
+}
+
+// The backward of the same call (attention_bwd.cuh), bf16 q/k/v only: o the
+// forward's output, g the upstream gradient, dq, dk, dv bf16 outputs, all
+// (B, H, L, D) by element strides as above; stats (B, H, L) float4
+// scratch; ds (B, H, L, L) contiguous f32, or null where no table needs a
+// gradient. strides: q, k, v, o, g, dq, dk, dv, each (b, h, l), then
+// bias1d (h, row). Returns 0 once launched, else a CUDA error.
+extern "C" int sal_fused_attention_bwd(const void* q, const void* k, const void* v,
+                                       const void* o, const void* g, const void* bias1d,
+                                       const void* cell_bias, const void* cell,
+                                       const void* mask, void* dq, void* dk, void* dv,
+                                       void* stats, void* ds, int B, int H, int L, int D, int C,
+                                       const long long* strides, int table_is_bf16,
+                                       void* stream) {
+  if (C <= 0 || C > CMAX) return (int)cudaErrorInvalidValue;
+  const attn::BwdArgs a = attn::bwd_args(q, k, v, o, g, dq, dk, dv, stats, ds, strides, B, H, L,
+                                         L, D, 1.f);
+  const auto st = static_cast<cudaStream_t>(stream);
+  return with_sal_policy(bias1d, cell_bias, cell, mask, strides + 24, L, C, table_is_bf16,
+                         [&](const auto& p) { return attn::launch_bwd(a, p, st); });
 }

@@ -15,7 +15,8 @@ How the bias reaches the encoder is the ``SAL_FUSED`` knob
 :func:`encoder_bias`: on, every encoder layer gets the factored form, so on
 the card each encoder attention is the SaL kernel
 (``ops/sal_fused_attention.py``), in training under ``SalAttentionFn``
-(kernel forward, backward recomputed through the materialized bias); off,
+(kernel forward; in bf16 the backward kernels, whose logits' gradient the
+tables' gradients sum); off,
 the (B, H, L, L) f32 bias is materialized once per forward and every layer
 reads it through the attention kernel. Both compute the same function. The
 JAX package materializes in training whatever the knob (``train_bias``),

@@ -7,9 +7,12 @@ softmax. Counterpart of ``phoneme_vqa_tpu/ops/attention.py``.
 
 On the card a call that needs gradients goes through
 :class:`FusedAttentionFn` (the counterpart of the JAX package's ``_flash``
-``custom_vjp``): the kernel computes the forward, and the backward
-recomputes :func:`reference_attention` under autograd. The JAX package has
-no backward kernel, so neither has the port.
+``custom_vjp``): the kernel computes the forward, and for bf16 tensors the
+backward kernels (``csrc/attention_bwd.cuh``, written for the port: the JAX
+package recomputes the plain version under autodiff) compute dq, dk, dv and
+the logits' gradient that the bias's sums; CPU and f32 calls recompute
+:func:`reference_attention` under autograd instead
+(:func:`reference_attention_backward`).
 """
 
 from __future__ import annotations
@@ -82,25 +85,43 @@ def _needs_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
 
 
-def recompute_grads(forward, inputs, needs, g):
-    """The gradients of ``forward(*inputs)`` for the inputs whose ``needs``
-    is set (None for the others), recomputed on detached copies: the
-    backward of both kernels' ``autograd.Function``s."""
-    leaves = [None if t is None else t.detach().requires_grad_(n) for t, n in zip(inputs, needs)]
-    wanted = [t for t, n in zip(leaves, needs) if n]
+def backward_kernel_takes(q: torch.Tensor) -> bool:
+    """Whether the backward kernels take a kernel call's tensors: bf16 on the
+    card (the forward's contract already holds the head dim to a multiple of
+    8, at most 128). Else the backward wrappers recompute the plain version
+    (:func:`reference_attention_backward`)."""
+    return q.is_cuda and q.dtype == torch.bfloat16
+
+
+def reference_attention_backward(q, k, v, g, bias=None, key_mask=None, causal=False, scale=None,
+                                 want_ds=False):
+    """The backward kernels' plain version: (dq, dk, dv, dS) of
+    :func:`reference_attention` for the upstream gradient ``g``, recomputed
+    under autograd on detached copies, dS the gradient of the logits (B, H,
+    Lq, Lk) f32 when ``want_ds`` (else None): what a bias of batch B
+    receives, zero where a key is masked or causal."""
+    b, h, lq, _ = q.shape
+    # the bias at batch B (zeros without one: x + 0 == x), whose gradient is dS
+    full_bias = torch.zeros(b, h, lq, k.shape[2], dtype=torch.float32, device=q.device)
+    if bias is not None:
+        full_bias = full_bias + bias.detach().float()
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)] + [full_bias.requires_grad_(want_ds)]
     with torch.enable_grad():
-        grads = iter(torch.autograd.grad(forward(*leaves), wanted, g))
-    return [next(grads) if n else None for n in needs]
+        out = reference_attention(*leaves, key_mask, causal, scale)
+        grads = torch.autograd.grad(out, leaves[:3 + want_ds], g)
+    return (*grads[:3], grads[3] if want_ds else None)
 
 
 class FusedAttentionFn(torch.autograd.Function):
-    """The attention kernel's forward, a plain recompute backward.
+    """The attention kernel under autograd.
 
     ``forward`` launches ``flash_attention.fused_attention`` and saves q, k,
-    v, the bias and the mask; ``backward`` recomputes
-    :func:`reference_attention` on detached copies and returns dq, dk, dv
-    and dbias (summed over the batch by autograd when the bias has batch 1)
-    and None for the mask, the causal flag and the scale. Counterpart of
+    v, the bias, the mask and the output; ``backward`` calls
+    ``flash_attention.attention_backward`` (the backward kernels for bf16 on
+    the card, else the plain recompute) and returns dq, dk, dv and dbias
+    (the logits' gradient, summed over the batch when the bias has batch 1),
+    only for the inputs that need them, and None for the mask, the causal
+    flag and the scale. Counterpart of
     ``phoneme_vqa_tpu/ops/attention.py: _flash`` / ``_flash_fwd`` /
     ``_flash_bwd``."""
 
@@ -108,19 +129,24 @@ class FusedAttentionFn(torch.autograd.Function):
     def forward(ctx, q, k, v, bias, key_mask, causal, scale):
         from .flash_attention import fused_attention
 
-        ctx.save_for_backward(q, k, v, bias, key_mask)
+        out = fused_attention(q, k, v, bias, key_mask, causal, scale, any_layout=True)
+        ctx.save_for_backward(q, k, v, bias, key_mask, out)
         ctx.causal, ctx.scale = causal, scale
-        return fused_attention(q, k, v, bias, key_mask, causal, scale, any_layout=True)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, bias, key_mask = ctx.saved_tensors
-        grads = recompute_grads(
-            lambda q_, k_, v_, b_: reference_attention(q_, k_, v_, b_, key_mask, ctx.causal,
-                                                       ctx.scale),
-            (q, k, v, bias), ctx.needs_input_grad[:4], g,
-        )
-        return (*grads, None, None, None)
+        from .flash_attention import attention_backward
+
+        q, k, v, bias, key_mask, out = ctx.saved_tensors
+        needs = ctx.needs_input_grad[:4]
+        dq, dk, dv, ds = attention_backward(q, k, v, out, g, bias, key_mask, ctx.causal,
+                                            ctx.scale, want_ds=needs[3])
+        dbias = None
+        if needs[3]:
+            dbias = ds.sum(0, keepdim=True) if bias.shape[0] == 1 else ds
+        return (*(x if n else None for x, n in zip((dq, dk, dv), needs)), dbias,
+                None, None, None)
 
 
 def dot_product_attention(
@@ -139,8 +165,9 @@ def dot_product_attention(
     decode steps) takes the plain version. A kernel call that needs
     gradients (grad mode on and an input that requires grad) goes through
     the kernel's ``autograd.Function`` (:class:`FusedAttentionFn`,
-    ``sal_fused_attention.SalAttentionFn``), whose backward recomputes the
-    plain version; any other calls the kernel's wrapper directly. The
+    ``sal_fused_attention.SalAttentionFn``), whose backward launches the
+    backward kernels (bf16) or recomputes the plain version (f32); any
+    other calls the kernel's wrapper directly. The
     kernels read q, k and v in place (the models' transposed views
     included); only a tensor whose layout they do not take is copied
     (``any_layout``, ``ops.layout.kernel_operand``)."""

@@ -12,6 +12,13 @@ anything it does not take; for CPU tensors it computes the plain version,
 strides (``ops/layout.py``) and the output is written as (B, L, H, D)
 storage, returned as its (B, H, L, D) view. ``LAUNCHES`` counts kernel
 launches.
+
+:func:`attention_backward` launches the backward of the same source
+(``csrc/attention_bwd.cuh``: two kernels, dq, then dk and dv) for bf16 CUDA
+tensors, and recomputes the plain version for any other:
+``FusedAttentionFn.backward`` calls it. ``BACKWARD_LAUNCHES`` counts its
+calls on the kernels, ``RECOMPUTE_FALLBACKS`` those that took the plain
+recompute (CPU or f32 tensors).
 """
 
 from __future__ import annotations
@@ -22,13 +29,15 @@ from typing import Optional
 import torch
 
 from . import _build
-from .attention import reference_attention
+from .attention import backward_kernel_takes, reference_attention, reference_attention_backward
 from .layout import empty_output, kernel_operand
 
 NAME = "flash_attention"
 SOURCE = _build.source(NAME)
 
 LAUNCHES = 0  # kernel launches since import (or since a caller reset it)
+BACKWARD_LAUNCHES = 0  # attention_backward calls on the card (two kernel launches each)
+RECOMPUTE_FALLBACKS = 0  # attention_backward calls that took the plain recompute
 _lib = None
 
 
@@ -47,6 +56,20 @@ def _load():
             ctypes.c_void_p,  # stream
         ]
         fn.restype = ctypes.c_int
+        bwd = lib.flash_attention_bwd
+        bwd.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # q, k, v
+            ctypes.c_void_p, ctypes.c_void_p,  # out, g
+            ctypes.c_void_p, ctypes.c_void_p,  # bias, mask
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # dq, dk, dv
+            ctypes.c_void_p, ctypes.c_void_p,  # stats, ds
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B H Lq Lk D
+            ctypes.POINTER(ctypes.c_longlong),  # strides: q k v out g dq dk dv bias, each (b, h, l)
+            ctypes.c_int,  # bias batch
+            ctypes.c_int, ctypes.c_float,  # causal, scale
+            ctypes.c_void_p,  # stream
+        ]
+        bwd.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -123,3 +146,59 @@ def fused_attention(
         raise RuntimeError(f"flash_attention kernel launch failed: {_build.describe(err)}")
     LAUNCHES += 1
     return out
+
+
+def attention_backward(
+    q: torch.Tensor,  # (B, H, Lq, D)
+    k: torch.Tensor,  # (B, H, Lk, D)
+    v: torch.Tensor,
+    out: torch.Tensor,  # the forward's output
+    g: torch.Tensor,  # the gradient of out
+    bias: Optional[torch.Tensor] = None,  # (B|1, H, Lq, Lk) f32
+    key_mask: Optional[torch.Tensor] = None,  # (B, Lk) int32, nonzero = attend
+    causal: bool = False,
+    scale: Optional[float] = None,
+    want_ds: bool = False,
+):
+    """(dq, dk, dv, dS) of :func:`fused_attention`'s call: dq, dk, dv in q's
+    dtype as (B, H, L, D) views of (B, L, H, D) storage, and with
+    ``want_ds`` the gradient of the logits (B, H, Lq, Lk) f32, zero where a
+    key is masked or causal (else None), which a bias's gradient sums.
+
+    For bf16 tensors on the card it launches the backward kernels, reading
+    every operand in place where its layout allows (else a copy, as the
+    forward's ``any_layout``); any other call (CPU or f32 tensors) computes
+    the plain version, :func:`ops.attention.reference_attention_backward`,
+    counted in ``RECOMPUTE_FALLBACKS``."""
+    global BACKWARD_LAUNCHES, RECOMPUTE_FALLBACKS
+    if out.shape != q.shape or g.shape != q.shape or out.dtype != q.dtype:
+        raise ValueError(f"attention_backward: out ({out.dtype} {tuple(out.shape)}) and g "
+                         f"({tuple(g.shape)}) must have q's shape and out q's dtype")
+    if not backward_kernel_takes(q):
+        RECOMPUTE_FALLBACKS += 1
+        return reference_attention_backward(q, k, v, g, bias, key_mask, causal, scale, want_ds)
+    (q, q_st), (k, k_st), (v, v_st) = _check(q, k, v, bias, key_mask, True)
+    (out, o_st), (g, g_st) = kernel_operand(out), kernel_operand(g.to(q.dtype))
+    fn = _load().flash_attention_bwd
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    (dq, dq_st), (dk, dk_st), (dv, dv_st) = empty_output(q), empty_output(k), empty_output(v)
+    stats = torch.empty(b, h, lq, 4, dtype=torch.float32, device=q.device)
+    ds = torch.empty(b, h, lq, lk, dtype=torch.float32, device=q.device) if want_ds else None
+    bias_st = (0, 0, 0)
+    if bias is not None:
+        bias, bias_st = kernel_operand(bias)
+    strides = (ctypes.c_longlong * 27)(*q_st, *k_st, *v_st, *o_st, *g_st, *dq_st, *dk_st,
+                                       *dv_st, *bias_st)
+    err = _build.call(
+        fn, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(),
+        None if bias is None else bias.data_ptr(),
+        None if key_mask is None else key_mask.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+        None if ds is None else ds.data_ptr(), b, h, lq, lk, d, strides,
+        1 if bias is None else bias.shape[0], int(causal), 1.0 if scale is None else float(scale),
+    )
+    if err != 0:
+        raise RuntimeError(f"flash_attention backward launch failed: {_build.describe(err)}")
+    BACKWARD_LAUNCHES += 1
+    return dq, dk, dv, ds

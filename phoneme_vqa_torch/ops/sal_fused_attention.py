@@ -20,8 +20,12 @@ it does not take; for CPU tensors it computes the plain version,
 :func:`sal_reference_attention`. q, k and v are read in place by strides
 (``ops/layout.py``) and the output is written as (B, L, H, D) storage,
 returned as its (B, H, L, D) view. ``LAUNCHES`` counts kernel launches.
-:class:`SalAttentionFn` puts the kernel under autograd with a backward that
-recomputes the plain version.
+:class:`SalAttentionFn` puts the kernel under autograd; its backward calls
+:func:`sal_attention_backward`, which gives dq, dk, dv and the logits'
+gradient that the tables' gradients sum: for bf16 q, k, v on the card from
+the same source's backward kernels (``csrc/attention_bwd.cuh``, counted in
+``BACKWARD_LAUNCHES``), for other calls by the plain recompute
+(``RECOMPUTE_FALLBACKS``).
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from . import _build
-from .attention import recompute_grads, reference_attention
+from .attention import backward_kernel_takes, reference_attention, reference_attention_backward
 from .layout import empty_output, kernel_operand
 
 NAME = "sal_fused_attention"
@@ -43,7 +47,18 @@ SENTINEL = GRID_CELLS  # the cell id of a token outside the OCR block
 MAX_CELLS = 128  # the widest cell table the kernel takes
 
 LAUNCHES = 0  # kernel launches since import (or since a caller reset it)
+BACKWARD_LAUNCHES = 0  # sal_attention_backward calls on the card (two kernel launches each)
+RECOMPUTE_FALLBACKS = 0  # sal_attention_backward calls that took the plain recompute
 _lib = None
+
+
+def cell_pair_sums(g: torch.Tensor, cell: torch.Tensor, c: int) -> torch.Tensor:
+    """(H, C, C) f32: the (B, H, L, L) ``g`` summed into each head's (cell_q,
+    cell_k) pairs, cell ids above C - 1 read as the sentinel C - 1:
+    onehot(cell)ᵀ · g[b, h] · onehot(cell) summed over the batch, the
+    gradient of ``cell_bias[:, cell_q, cell_k]``."""
+    onehot = torch.nn.functional.one_hot(cell.long().clamp(max=c - 1), c).to(g.dtype)[:, None]
+    return torch.matmul(torch.matmul(onehot.transpose(-1, -2), g), onehot).sum(0)
 
 
 class _CellPairGather(torch.autograd.Function):
@@ -65,9 +80,7 @@ class _CellPairGather(torch.autograd.Function):
     def backward(ctx, g):
         (cell,) = ctx.saved_tensors
         c, dtype = ctx.table
-        onehot = torch.nn.functional.one_hot(cell, c).to(g.dtype)[:, None]  # (B, 1, L, C)
-        per_item = torch.matmul(torch.matmul(onehot.transpose(-1, -2), g), onehot)
-        return per_item.sum(0).to(dtype), None
+        return cell_pair_sums(g, cell, c).to(dtype), None
 
 
 def materialize_sal_bias(bias1d, cell_bias, cell) -> torch.Tensor:
@@ -97,28 +110,43 @@ def sal_reference_attention(q, k, v, bias1d, cell_bias, cell, key_mask) -> torch
     return reference_attention(q, k, v, bias=bias, key_mask=key_mask)
 
 
+def sal_reference_attention_backward(q, k, v, g, bias1d, cell_bias, cell, key_mask,
+                                     want_ds=False):
+    """The SaL backward kernels' plain version: (dq, dk, dv, dS) of
+    :func:`sal_reference_attention` by autograd, dS the gradient of the
+    logits (B, H, L, L) f32 when ``want_ds`` (else None)."""
+    bias = materialize_sal_bias(bias1d.detach(), cell_bias.detach(), cell)
+    return reference_attention_backward(q, k, v, g, bias, key_mask, want_ds=want_ds)
+
+
 class SalAttentionFn(torch.autograd.Function):
-    """The SaL kernel's forward, a plain recompute backward: ``backward``
-    recomputes :func:`sal_reference_attention` (the bias materialized) on
-    detached copies and returns dq, dk, dv, dbias1d and dcell_bias, None for
-    the cells and the mask. Counterpart of
+    """The SaL kernel under autograd: ``backward`` calls
+    :func:`sal_attention_backward` (the backward kernels for bf16 q, k, v on
+    the card, else the plain recompute) and returns dq, dk, dv and the
+    tables' gradients from the logits' gradient dS (dbias1d: dS summed over
+    the batch; dcell_bias: dS summed into its cell pairs,
+    :func:`cell_pair_sums`), each only where it is needed, and None for the
+    cells and the mask. Counterpart of
     ``phoneme_vqa_tpu/ops/sal_fused_attention.py: sal_attention`` / ``_fwd`` /
     ``_bwd``."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias1d, cell_bias, cell, key_mask):
-        ctx.save_for_backward(q, k, v, bias1d, cell_bias, cell, key_mask)
-        return sal_fused_attention(q, k, v, bias1d, cell_bias, cell, key_mask, any_layout=True)
+        out = sal_fused_attention(q, k, v, bias1d, cell_bias, cell, key_mask, any_layout=True)
+        ctx.save_for_backward(q, k, v, bias1d, cell_bias, cell, key_mask, out)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, bias1d, cell_bias, cell, key_mask = ctx.saved_tensors
-        grads = recompute_grads(
-            lambda q_, k_, v_, b_, cb_: sal_reference_attention(q_, k_, v_, b_, cb_, cell,
-                                                                key_mask),
-            (q, k, v, bias1d, cell_bias), ctx.needs_input_grad[:5], g,
-        )
-        return (*grads, None, None)
+        q, k, v, bias1d, cell_bias, cell, key_mask, out = ctx.saved_tensors
+        needs = ctx.needs_input_grad[:5]
+        dq, dk, dv, ds = sal_attention_backward(q, k, v, out, g, bias1d, cell_bias, cell,
+                                                key_mask, want_ds=needs[3] or needs[4])
+        dbias1d = ds.sum(0).to(bias1d.dtype) if needs[3] else None
+        dcell = (cell_pair_sums(ds, cell, cell_bias.shape[-1]).to(cell_bias.dtype)
+                 if needs[4] else None)
+        return (*(x if n else None for x, n in zip((dq, dk, dv), needs)), dbias1d, dcell,
+                None, None)
 
 
 def _load():
@@ -136,6 +164,20 @@ def _load():
             ctypes.c_void_p,  # stream
         ]
         fn.restype = ctypes.c_int
+        bwd = lib.sal_fused_attention_bwd
+        bwd.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # q, k, v
+            ctypes.c_void_p, ctypes.c_void_p,  # out, g
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # bias1d, cell_bias, cell
+            ctypes.c_void_p,  # mask
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # dq, dk, dv
+            ctypes.c_void_p, ctypes.c_void_p,  # stats, ds
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B H L D C
+            ctypes.POINTER(ctypes.c_longlong),  # strides: q k v out g dq dk dv (b, h, l), bias1d (h, l)
+            ctypes.c_int,  # table_is_bf16
+            ctypes.c_void_p,  # stream
+        ]
+        bwd.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -215,3 +257,57 @@ def sal_fused_attention(
         raise RuntimeError(f"sal_fused_attention kernel launch failed: {_build.describe(err)}")
     LAUNCHES += 1
     return out
+
+
+def sal_attention_backward(
+    q: torch.Tensor,  # (B, H, L, D)
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,  # the forward's output
+    g: torch.Tensor,  # the gradient of out
+    bias1d: torch.Tensor,  # (H, L, L) f32 or bf16
+    cell_bias: torch.Tensor,  # (H, C, C), bias1d's type
+    cell: torch.Tensor,  # (B, L) int32
+    key_mask: Optional[torch.Tensor],  # (B, L) int32 or None
+    want_ds: bool = False,
+):
+    """(dq, dk, dv, dS) of :func:`sal_fused_attention`'s call: dq, dk, dv in
+    q's dtype as (B, H, L, D) views of (B, L, H, D) storage, and with
+    ``want_ds`` the gradient of the logits (B, H, L, L) f32, zero where a key
+    is masked (else None), from which the tables' gradients are summed.
+
+    For bf16 q, k, v on the card it launches the backward kernels, reading
+    every operand in place where its layout allows (else a copy); any other
+    call (CPU or f32 tensors) computes the plain version,
+    :func:`sal_reference_attention_backward`, counted in
+    ``RECOMPUTE_FALLBACKS``."""
+    global BACKWARD_LAUNCHES, RECOMPUTE_FALLBACKS
+    if out.shape != q.shape or g.shape != q.shape or out.dtype != q.dtype:
+        raise ValueError(f"sal_attention_backward: out ({out.dtype} {tuple(out.shape)}) and g "
+                         f"({tuple(g.shape)}) must have q's shape and out q's dtype")
+    if not backward_kernel_takes(q):
+        RECOMPUTE_FALLBACKS += 1
+        return sal_reference_attention_backward(q, k, v, g, bias1d, cell_bias, cell, key_mask,
+                                                want_ds)
+    (q, q_st), (k, k_st), (v, v_st) = _check(q, k, v, bias1d, cell_bias, cell, key_mask, True)
+    (out, o_st), (g, g_st) = kernel_operand(out), kernel_operand(g.to(q.dtype))
+    fn = _load().sal_fused_attention_bwd
+    b, h, l, d = q.shape
+    (dq, dq_st), (dk, dk_st), (dv, dv_st) = empty_output(q), empty_output(k), empty_output(v)
+    stats = torch.empty(b, h, l, 4, dtype=torch.float32, device=q.device)
+    ds = torch.empty(b, h, l, l, dtype=torch.float32, device=q.device) if want_ds else None
+    bias1d, bias1d_st = kernel_operand(bias1d)
+    strides = (ctypes.c_longlong * 26)(*q_st, *k_st, *v_st, *o_st, *g_st, *dq_st, *dk_st,
+                                       *dv_st, *bias1d_st)
+    err = _build.call(
+        fn, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(),
+        bias1d.data_ptr(), cell_bias.data_ptr(), cell.data_ptr(),
+        None if key_mask is None else key_mask.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+        None if ds is None else ds.data_ptr(), b, h, l, d, cell_bias.shape[-1], strides,
+        int(bias1d.dtype == torch.bfloat16),
+    )
+    if err != 0:
+        raise RuntimeError(f"sal_fused_attention backward launch failed: {_build.describe(err)}")
+    BACKWARD_LAUNCHES += 1
+    return dq, dk, dv, ds

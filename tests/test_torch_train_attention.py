@@ -228,3 +228,178 @@ def test_sal_function_grads_match_jax_sal_attention(monkeypatch, shape):
     for name, a, b_ in zip(("dq", "dk", "dv", "dbias1d", "dcell_bias"), got, want):
         assert np.abs(a).max() > 0, name
         np.testing.assert_allclose(a, np.asarray(b_), atol=TOL, rtol=TOL, err_msg=name)
+
+
+class _BackwardStandIn:
+    """Stands in for a backward-kernel wrapper (``attention_backward`` /
+    ``sal_attention_backward``): counts calls and the dS requests, returns
+    the plain dq, dk, dv and dS, as the kernels give them."""
+
+    def __init__(self, plain):
+        self.plain, self.calls, self.want_ds = plain, 0, []
+
+    def __call__(self, q, k, v, out, g, *rest, want_ds=False):
+        self.calls += 1
+        self.want_ds.append(want_ds)
+        return self.plain(q, k, v, g, *rest, want_ds=want_ds)
+
+
+def _kernel_backward(monkeypatch, module, name, plain):
+    """Puts a stand-in in place of the backward wrapper ``module.name``,
+    which the Functions' backward calls."""
+    stand_in = _BackwardStandIn(plain)
+    monkeypatch.setattr(module, name, stand_in)
+    return stand_in
+
+
+@pytest.mark.parametrize("bias_kind,use_mask,causal,scale",
+                         list(itertools.product(("one", "batch"), (False, True), (False, True),
+                                                (None, 0.5))))
+def test_attention_function_assembles_the_bias_gradient_from_ds(monkeypatch, bias_kind, use_mask,
+                                                                causal, scale):
+    """``FusedAttentionFn.backward`` from the backward wrapper's (a
+    stand-in's) dq, dk, dv and dS: the JAX ``custom_vjp``'s gradients, the
+    T5 bias's (batch 1) as dS summed over the batch and a batch-B bias's as
+    dS itself."""
+    q, k, v, bias, mask, w = _inputs(2, 3, 17, 17, 8, seed=11)
+    bias = bias[:1] if bias_kind == "one" else bias
+    mask = mask if use_mask else None
+    t_mask = None if mask is None else torch.from_numpy(mask)
+    want = _jax_flash_grads(q, k, v, bias, mask, causal, scale, w)
+    monkeypatch.setattr(t_flash, "fused_attention", _CountingLauncher(t_attn.reference_attention))
+    stand_in = _kernel_backward(monkeypatch, t_flash, "attention_backward",
+                                t_attn.reference_attention_backward)
+    before = t_flash.RECOMPUTE_FALLBACKS
+    got = _torch_grads(
+        lambda q_, k_, v_, b_: t_attn.FusedAttentionFn.apply(q_, k_, v_, b_, t_mask, causal,
+                                                             scale),
+        (q, k, v, bias), w)
+    assert stand_in.calls == 1 and stand_in.want_ds == [True]
+    assert t_flash.RECOMPUTE_FALLBACKS == before
+    for name, a, jx in zip(("dq", "dk", "dv", "dbias"), got, want):
+        assert a.shape == jx.shape and np.abs(a).max() > 0, name
+        np.testing.assert_allclose(a, jx, atol=TOL, rtol=TOL, err_msg=name)
+
+
+def test_attention_function_asks_for_ds_only_where_a_bias_needs_a_gradient(monkeypatch):
+    """A bias that needs no gradient (or none at all): the backward asks the
+    wrapper for no dS and returns the JAX gradients of q, k and v."""
+    q, k, v, bias, mask, w = _inputs(2, 3, 5, 29, 16, seed=12)
+    bias = bias[:1]
+    t_mask = torch.from_numpy(mask)
+    want = _jax_flash_grads(q, k, v, bias, mask, False, None, w)
+    monkeypatch.setattr(t_flash, "fused_attention", _CountingLauncher(t_attn.reference_attention))
+    stand_in = _kernel_backward(monkeypatch, t_flash, "attention_backward",
+                                t_attn.reference_attention_backward)
+    t_bias = torch.from_numpy(bias)  # no requires_grad
+    got = _torch_grads(lambda q_, k_, v_: t_attn.FusedAttentionFn.apply(
+        q_, k_, v_, t_bias, t_mask, False, None), (q, k, v), w)
+    got_nobias = _torch_grads(lambda q_, k_, v_: t_attn.FusedAttentionFn.apply(
+        q_, k_, v_, None, t_mask, False, None), (q, k, v), w)
+    want_nobias = _jax_flash_grads(q, k, v, None, mask, False, None, w)
+    assert stand_in.want_ds == [False, False]
+    for a, b_, c, d_ in zip(got, want, got_nobias, want_nobias):
+        np.testing.assert_allclose(a, b_, atol=TOL, rtol=TOL)
+        np.testing.assert_allclose(c, d_, atol=TOL, rtol=TOL)
+
+
+def _jax_sal_grads(q, k, v, bias1d, cb, cell, mask, w):
+    saved = j_sfa.INTERPRET
+    j_sfa.set_interpret(True)
+    try:
+        return jax.grad(
+            lambda *a: jnp.sum(j_sfa.sal_attention(*a, jnp.asarray(cell), jnp.asarray(mask)) * w),
+            argnums=(0, 1, 2, 3, 4),
+        )(q, k, v, bias1d, cb)
+    finally:
+        j_sfa.set_interpret(saved)
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 37, 16), (2, 2, 24, 8)])
+def test_sal_function_assembles_the_table_gradients_from_ds(monkeypatch, shape):
+    """``SalAttentionFn.backward`` from the backward wrapper's (a
+    stand-in's) dS: dbias1d is dS summed over the batch and dcell_bias dS
+    summed into its (cell_q, cell_k) pairs, the sentinel cells (the question
+    block, the tail, an id past the sentinel) into the sentinel row and
+    column; both equal the JAX ``sal_attention``'s gradients."""
+    q, k, v, bias1d, cb, cell, mask, w = _sal_inputs(*shape, seed=13)
+    cell[1, 6] = 300  # read as the sentinel
+    want = _jax_sal_grads(q, k, v, bias1d, cb, np.minimum(cell, t_sfa.SENTINEL), mask, w)
+    monkeypatch.setattr(t_sfa, "sal_fused_attention",
+                        _CountingLauncher(t_sfa.sal_reference_attention))
+    stand_in = _kernel_backward(monkeypatch, t_sfa, "sal_attention_backward",
+                                t_sfa.sal_reference_attention_backward)
+    t_cell, t_mask = torch.from_numpy(cell), torch.from_numpy(mask)
+    got = _torch_grads(
+        lambda *a: t_sfa.SalAttentionFn.apply(*a, t_cell, t_mask), (q, k, v, bias1d, cb), w)
+    assert stand_in.calls == 1 and stand_in.want_ds == [True]
+    assert np.abs(got[4][:, -1]).max() > 0  # the sentinel row gathers every non-OCR token
+    for name, a, b_ in zip(("dq", "dk", "dv", "dbias1d", "dcell_bias"), got, want):
+        assert np.abs(a).max() > 0, name
+        np.testing.assert_allclose(a, np.asarray(b_), atol=TOL, rtol=TOL, err_msg=name)
+
+
+def test_sal_function_asks_for_ds_only_where_a_table_needs_a_gradient(monkeypatch):
+    q, k, v, bias1d, cb, cell, mask, w = _sal_inputs(2, 2, 24, 8, seed=14)
+    want = _jax_sal_grads(q, k, v, bias1d, cb, cell, mask, w)
+    monkeypatch.setattr(t_sfa, "sal_fused_attention",
+                        _CountingLauncher(t_sfa.sal_reference_attention))
+    stand_in = _kernel_backward(monkeypatch, t_sfa, "sal_attention_backward",
+                                t_sfa.sal_reference_attention_backward)
+    t_cell, t_mask = torch.from_numpy(cell), torch.from_numpy(mask)
+    tables = torch.from_numpy(bias1d), torch.from_numpy(cb)  # no requires_grad
+    got = _torch_grads(lambda q_, k_, v_: t_sfa.SalAttentionFn.apply(q_, k_, v_, *tables, t_cell,
+                                                                     t_mask), (q, k, v), w)
+    only_cb = _torch_grads(lambda cb_: t_sfa.SalAttentionFn.apply(
+        *(torch.from_numpy(x) for x in (q, k, v, bias1d)), cb_, t_cell, t_mask), (cb,), w)
+    assert stand_in.want_ds == [False, True]
+    for a, b_ in zip(got + only_cb, list(want[:3]) + [want[4]]):
+        np.testing.assert_allclose(a, np.asarray(b_), atol=TOL, rtol=TOL)
+
+
+def test_cpu_and_f32_calls_take_the_recompute_and_count_it(monkeypatch):
+    """Where the backward kernels do not take a call (CPU tensors; f32 on
+    the card) the Functions recompute the plain version: each backward
+    counts one fallback and no backward launch."""
+    assert not t_attn.backward_kernel_takes(torch.zeros(1, dtype=torch.float32))
+    assert not t_attn.backward_kernel_takes(torch.zeros(1, dtype=torch.bfloat16))
+    monkeypatch.setattr(t_flash, "fused_attention", _CountingLauncher(t_attn.reference_attention))
+    monkeypatch.setattr(t_sfa, "sal_fused_attention",
+                        _CountingLauncher(t_sfa.sal_reference_attention))
+    q, k, v, bias, mask, w = _inputs(2, 3, 17, 17, 8, seed=15)
+    counts = lambda: (t_flash.BACKWARD_LAUNCHES, t_flash.RECOMPUTE_FALLBACKS,
+                      t_sfa.BACKWARD_LAUNCHES, t_sfa.RECOMPUTE_FALLBACKS)
+    before = counts()
+    _torch_grads(lambda q_, k_, v_, b_: t_attn.FusedAttentionFn.apply(
+        q_, k_, v_, b_, torch.from_numpy(mask), True, None), (q, k, v, bias[:1]), w)
+    assert counts() == (before[0], before[1] + 1, before[2], before[3])
+    sq, sk, sv, bias1d, cb, cell, smask, sw = _sal_inputs(2, 2, 24, 8, seed=16)
+    _torch_grads(lambda *a: t_sfa.SalAttentionFn.apply(*a, torch.from_numpy(cell),
+                                                       torch.from_numpy(smask)),
+                 (sq, sk, sv, bias1d, cb), sw)
+    assert counts() == (before[0], before[1] + 1, before[2], before[3] + 1)
+
+
+def test_backward_wrappers_compute_the_plain_backward_on_the_cpu():
+    """On the CPU ``attention_backward`` / ``sal_attention_backward`` give the
+    plain version: dq, dk, dv of autograd through the plain forward and dS,
+    the logits' gradient, which sums to the bias's gradient."""
+    q, k, v, bias, mask, w = (torch.from_numpy(x) for x in _inputs(2, 3, 17, 17, 8, seed=17))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v, bias[:1])]
+    out = t_attn.reference_attention(*leaves, mask, True, 0.5)
+    want = torch.autograd.grad(out, leaves, w)
+    dq, dk, dv, ds = t_flash.attention_backward(q, k, v, out.detach(), w, bias[:1], mask, True,
+                                                0.5, want_ds=True)
+    for a, b_ in zip((dq, dk, dv, ds.sum(0, keepdim=True)), want):
+        torch.testing.assert_close(a, b_, atol=1e-6, rtol=1e-6)
+    assert t_flash.attention_backward(q, k, v, out.detach(), w, bias[:1], mask, True, 0.5)[3] is None
+    sq, sk, sv, bias1d, cb, cell, smask, sw = (
+        torch.from_numpy(x) for x in _sal_inputs(2, 2, 24, 8, seed=18))
+    leaves = [t.clone().requires_grad_() for t in (sq, sk, sv, bias1d, cb)]
+    out = t_sfa.sal_reference_attention(*leaves, cell, smask)
+    want = torch.autograd.grad(out, leaves, sw)
+    dq, dk, dv, ds = t_sfa.sal_attention_backward(sq, sk, sv, out.detach(), sw, bias1d, cb, cell,
+                                                  smask, want_ds=True)
+    got = (dq, dk, dv, ds.sum(0), t_sfa.cell_pair_sums(ds, cell, cb.shape[-1]))
+    for a, b_ in zip(got, want):
+        torch.testing.assert_close(a, b_, atol=1e-5, rtol=1e-5)
